@@ -24,7 +24,7 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any], model: nn.Module) 
     ``num_batches_tracked``; each of the model's is filled with 0, the value
     of a BatchNorm that has not trained here."""
     state = {
-        k.removeprefix("module."): torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        k.removeprefix("module."): torch.from_numpy(np.array(v, dtype=np.float32))  # a writable copy
         for k, v in export_torch_state_dict(variables).items()
     }
     for name, buf in model.named_buffers():

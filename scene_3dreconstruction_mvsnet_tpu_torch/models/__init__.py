@@ -1,7 +1,7 @@
 from .blocks import ConvBnReLU, ConvBnReLU3D, ConvTransposeBnReLU3D
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
-from .mvsnet import MVSNet, random_init_
+from .mvsnet import MVSNet, mvsnet_loss, random_init_
 
 __all__ = [
     "ConvBnReLU",
@@ -10,5 +10,6 @@ __all__ = [
     "CostRegNet",
     "FeatureNet",
     "MVSNet",
+    "mvsnet_loss",
     "random_init_",
 ]

@@ -4,8 +4,10 @@ Counterpart of the non-flat blocks of
 ``scene_3dreconstruction_mvsnet_tpu/models/blocks.py``. Module names follow
 the reference's state-dict keys (``conv``/``bn``; ``0``/``1`` for the
 transposed-conv stages), so the JAX package's exported weights load with
-``strict=True``. BatchNorm is torch's own: eps 1e-5, running-stat momentum
-0.1.
+``strict=True``. BatchNorm is torch's kernel with flax's training
+semantics: eps 1e-5, running-stat momentum 0.1 (flax's 0.9), and the running
+variance updated with the biased batch variance, as flax does (torch's own
+BatchNorm uses the unbiased one).
 
 Parameters stay f32. Every conv computes in the dtype of its input (bf16 on
 the fast path, f32 otherwise) with its weights cast to it, as the JAX blocks
@@ -18,6 +20,41 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class _FlaxRunningVar:
+    """BatchNorm whose training step updates the running variance with the
+    biased batch variance, as flax's BatchNorm does
+    (``scene_3dreconstruction_mvsnet_tpu/models/blocks.py:118-124``).
+
+    torch's kernel normalises with the biased variance but adds
+    ``momentum * var * n / (n - 1)`` to the running variance. The kernel
+    updates a copy of the running variance (autograd keeps that copy, so the
+    buffer may change after the call); the batch term is recovered from the
+    copy's update and rescaled by ``(n - 1) / n``. The activation is read
+    once: an explicit f32 variance of a bf16 activation would read it again
+    and hold an f32 copy. Normalisation and the running-stat update run in
+    f32 inside torch's kernel for bf16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        updated = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, updated, self.weight, self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            keep = (1.0 - self.momentum) * self.running_var  # flax: 0.9 * running var
+            self.running_var.copy_((updated - keep) * ((n - 1) / n) + keep)
+        return y
+
+
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
+    pass
 
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
@@ -40,7 +77,7 @@ class ConvBnReLU(nn.Module):
                  stride: int = 1, pad: int = 1, relu: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride, pad, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +92,7 @@ class ConvBnReLU3D(nn.Module):
                  stride: int = 1, pad: int = 1, relu: bool = True):
         super().__init__()
         self.conv = nn.Conv3d(in_channels, out_channels, kernel_size, stride, pad, bias=False)
-        self.bn = nn.BatchNorm3d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm3d(out_channels, eps=1e-5, momentum=0.1)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +109,7 @@ class ConvTransposeBnReLU3D(nn.Sequential):
         super().__init__(
             nn.ConvTranspose3d(in_channels, out_channels, 3, stride=2, padding=1,
                                output_padding=1, bias=False),
-            nn.BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
+            BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

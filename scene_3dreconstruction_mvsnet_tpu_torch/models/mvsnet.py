@@ -1,5 +1,6 @@
-"""MVSNet inference forward: FeatureNet -> plane-sweep variance cost volume
--> CostRegNet -> softmax regression and photometric confidence.
+"""MVSNet forward: FeatureNet -> plane-sweep variance cost volume ->
+CostRegNet -> softmax regression and photometric confidence; and its
+training loss.
 
 Counterpart of ``scene_3dreconstruction_mvsnet_tpu/models/mvsnet.py`` with
 ``refine=False``. Inputs are channels-last as in the JAX module: imgs
@@ -7,7 +8,11 @@ Counterpart of ``scene_3dreconstruction_mvsnet_tpu/models/mvsnet.py`` with
 at feature resolution, i.e. intrinsics / 4), depth_values [B, D].
 
 Steps 2 and 4 go through the kernel wrappers (``ops/kernels``): CPU tensors
-take the plain PyTorch versions, CUDA tensors the Hopper kernels.
+take the plain PyTorch versions, CUDA tensors the Hopper kernels. In
+training (``model.train()``, gradients on) step 2 is the paired sweep (K1
+emitting the warps forward, K3 backward) and step 4 the plain differentiable
+regression, since the regression kernel has no backward; BatchNorm then
+normalises with batch statistics, FeatureNet's over all B*V images.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch.nn as nn
 
 from ..ops.kernels.softmax_regression import softmax_regression
 from ..ops.kernels.sweep_variance import sweep_variance
+from ..ops.paired_sweep import paired_cost_volume
+from ..ops.regression import regress_depth_and_confidence
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
 
@@ -28,7 +35,7 @@ class MVSNet(nn.Module):
 
     Args:
       depth_chunk: chunk size of the plain sweep's depth axis (bounds its
-        memory); the sweep kernel never holds a warped volume and ignores it.
+        memory on the CPU); the sweep kernel ignores it.
       dtype: compute dtype of the conv stacks and of the features the sweep
         samples; None is f32, ``torch.bfloat16`` the fast path. Parameters
         stay f32 and are cast per conv. The sweep accumulates in f32 and the
@@ -56,8 +63,10 @@ class MVSNet(nn.Module):
         feats = feats.reshape(B, V, H // 4, W // 4, feats.shape[-1])
 
         # Step 2: variance cost volume [B, D, H/4, W/4, 32] in the compute
-        # dtype, accumulated in f32.
-        volume = sweep_variance(
+        # dtype, accumulated in f32; differentiable through the paired sweep
+        # when training.
+        sweep = paired_cost_volume if self.training and torch.is_grad_enabled() else sweep_variance
+        volume = sweep(
             feats, proj_matrices.float(), depth_values,
             depth_chunk=self.depth_chunk, out_dtype=dtype,
         )
@@ -65,9 +74,21 @@ class MVSNet(nn.Module):
         # Step 3: 3D U-Net -> [B, D, h, w] logits.
         cost_reg = self.cost_regularization(volume)[..., 0]
 
-        # Step 4: softmax regression + confidence, in f32.
-        depth, confidence = softmax_regression(cost_reg.float(), depth_values)
+        # Step 4: softmax regression + confidence, in f32; the kernel is
+        # inference-only, training takes the differentiable plain version.
+        regress = regress_depth_and_confidence if self.training else softmax_regression
+        depth, confidence = regress(cost_reg.float(), depth_values)
         return {"depth": depth, "photometric_confidence": confidence}
+
+
+def mvsnet_loss(depth_est: torch.Tensor, depth_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked smooth-L1 (beta 1) loss, the mean over the pixels with
+    mask > 0.5 (at least 1): ``F.smooth_l1_loss`` over the valid pixels, as
+    the JAX package's ``mvsnet_loss``."""
+    valid = (mask > 0.5).to(depth_est.dtype)
+    diff = (depth_est - depth_gt).abs()
+    per_pixel = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
+    return (per_pixel * valid).sum() / valid.sum().clamp_min(1.0)
 
 
 @torch.no_grad()

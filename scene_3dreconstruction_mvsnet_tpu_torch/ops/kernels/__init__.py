@@ -3,7 +3,8 @@
 A CUDA C++ kernel lives in ``csrc/<name>.cu`` behind a plain C interface. At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``<repo>/build/kernels/<name>-<hash>.so`` and loaded with ``ctypes``; the hash
-covers the source and the flags, so an edited source rebuilds. Triton kernels
+covers the source, the ``csrc/*.cuh`` headers it includes and the flags, so an
+edited source or shared header rebuilds. Triton kernels
 are compiled by Triton at their first launch. Nothing here is built or
 imported from a GPU toolchain when the module is imported.
 """
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,15 +42,35 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, of every header it includes with ``#include "..."``
+    (resolved beside it, followed transitively) and of the compiler flags:
+    editing a shared header rebuilds every library that includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        todo += [(path.parent / m.decode()).resolve() for m in _LOCAL_INCLUDE.findall(text)]
+    return h.hexdigest()[:16]
+
+
 def build_cuda_library(name: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists.
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
+    of the headers it includes) exists.
 
     Returns (path of the shared library, seconds spent compiling, the
     compiler's output with ptxas' register and spill report; both empty/0
     when the build was already there)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    lib = BUILD_DIR / f"{name}-{source_digest(src)}.so"
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

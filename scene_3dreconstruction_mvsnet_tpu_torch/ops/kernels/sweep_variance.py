@@ -4,8 +4,10 @@ Replaces the TPU kernel ``scene_3dreconstruction_mvsnet_tpu/ops/pallas/
 sweep_variance.py::sweep_variance_pallas``. The kernel
 (``csrc/sweep_variance.cu``) computes the whole multi-view variance cost
 volume in one launch per sample, with the warped per-view volumes kept in
-registers. Its bound on the H100 is the output write and the bilinear gather
-through L2 (the source features fit in the 50 MB L2); one thread per
+registers; with ``emit_warps`` (the training forward) the same launch also
+stores each source view's warped volume. Its bound on the H100 is the
+output write and the bilinear gather through L2 (the source features fit in
+the 50 MB L2); one thread per
 (plane, pixel, 8 channels) keeps both loads and stores contiguous across a
 warp. The TPU kernel's window planner, validity flag with XLA fallback,
 column-pair packing and row-skip existed because the TPU's gather only
@@ -28,6 +30,7 @@ from ..plane_sweep import cost_volume_variance
 from . import check_cuda_tensor, load_cuda_library
 
 LAUNCHES = 0  # kernel launches since the last reset; only the launch site adds to it
+EMIT_LAUNCHES = 0  # of those, the launches that also emitted the warped volumes
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -37,8 +40,8 @@ def _library() -> ctypes.CDLL:
     lib = load_cuda_library("sweep_variance")
     lib.sweep_variance_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sweep_variance_launch.restype = ctypes.c_int
     lib.sweep_variance_error_string.argtypes = [ctypes.c_int]
@@ -63,11 +66,14 @@ def sweep_variance_cuda(
     proj_matrices: torch.Tensor,
     depth_values: torch.Tensor,
     out_dtype: torch.dtype | None = None,
-) -> torch.Tensor:
+    emit_warps: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 for one sample: features [V, H, W, C] (f32 or bf16, C % 8
     == 0), proj_matrices [V, 4, 4] f32, depth_values [D] f32 ->
-    variance [D, H, W, C] in ``out_dtype`` (default: the features dtype)."""
-    global LAUNCHES
+    variance [D, H, W, C] in ``out_dtype`` (default: the features dtype);
+    with ``emit_warps`` also each source view's warped volume
+    [V-1, D, H, W, C] in ``out_dtype``, from the same launch."""
+    global LAUNCHES, EMIT_LAUNCHES
     device = features.device
     if device.type != "cuda":
         raise ValueError(f"sweep_variance_cuda takes CUDA tensors, got {device}")
@@ -84,18 +90,22 @@ def sweep_variance_cuda(
     D = depth_values.shape[0]
     homography = homography_terms(proj_matrices.to(device))
     out = torch.empty((D, H, W, C), dtype=out_dtype, device=device)
+    warps = torch.empty((V - 1, D, H, W, C), dtype=out_dtype, device=device) if emit_warps else None
     lib = _library()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = lib.sweep_variance_launch(
             features.data_ptr(), int(features.dtype == torch.bfloat16), homography.data_ptr(),
             depth_values.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            V, D, H, W, C, stream,
+            None if warps is None else warps.data_ptr(), V, D, H, W, C, stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep_variance kernel launch failed: {lib.sweep_variance_error_string(err).decode()}")
     LAUNCHES += 1
-    return out
+    if warps is None:
+        return out
+    EMIT_LAUNCHES += 1
+    return out, warps
 
 
 def sweep_variance(
@@ -104,21 +114,31 @@ def sweep_variance(
     depth_values: torch.Tensor,
     depth_chunk: int | None = None,
     out_dtype: torch.dtype | None = None,
-) -> torch.Tensor:
+    emit_warps: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Variance cost volume: features [B, V, H, W, C], proj_matrices
     [B, V, 4, 4] f32, depth_values [B, D] f32 -> [B, D, H, W, C] in
-    ``out_dtype`` (default: the features dtype); accumulation is f32.
+    ``out_dtype`` (default: the features dtype); accumulation is f32. With
+    ``emit_warps`` also the source views' warped volumes
+    [B, V-1, D, H, W, C] in ``out_dtype``.
 
     CPU tensors take the plain path (``depth_chunk`` bounds its memory); CUDA
-    tensors launch K1 once per sample, which never holds a warped volume, so
-    ``depth_chunk`` does not apply there.
+    tensors launch K1 once per sample, which never holds a warped volume it
+    does not emit, so ``depth_chunk`` does not apply there.
     """
     if features.device.type == "cpu":
         return cost_volume_variance(
-            features, proj_matrices, depth_values, depth_chunk=depth_chunk, out_dtype=out_dtype
+            features, proj_matrices, depth_values, depth_chunk=depth_chunk, out_dtype=out_dtype,
+            emit_warps=emit_warps,
         )
     outs = [
-        sweep_variance_cuda(features[b], proj_matrices[b], depth_values[b], out_dtype)
+        sweep_variance_cuda(features[b], proj_matrices[b], depth_values[b], out_dtype, emit_warps)
         for b in range(features.shape[0])
     ]
-    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
+    if not emit_warps:
+        return _stack(outs)
+    return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
+
+
+def _stack(ts: list[torch.Tensor]) -> torch.Tensor:
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)

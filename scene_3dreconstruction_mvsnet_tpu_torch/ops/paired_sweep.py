@@ -1,0 +1,83 @@
+"""Paired plane-sweep cost volume: the training path's sweep, as one
+``torch.autograd.Function``.
+
+Counterpart of ``scene_3dreconstruction_mvsnet_tpu/ops/paired_sweep.py::
+make_paired_cost_volume``:
+
+  forward:  the sweep-variance kernel with ``emit_warps`` (K1, one launch
+            per sample) gives the variance volume and each source view's
+            warped volume; the warps, the features and the geometry are
+            saved for the backward.
+  backward: the variance's VJP with respect to view v's warped values is
+            (2/V) * g * (w_v - mean), an elementwise volume; its transpose
+            through the warp runs the warp-backward kernel (K3) once per
+            sample and source view. The reference view's gradient is the
+            direct reduction sum_d (2/V) * g * (ref - mean). ``mean`` is
+            built from the emitted warps, rounded to the output dtype, as
+            the JAX package builds it.
+
+Gradients flow to the feature values only: the sweep coordinates are
+constants, so the projections and depth values get none. The TPU version's
+plan validity output is not ported: it exists because the TPU kernels have
+static window envelopes, and a GPU thread reads and writes any address.
+
+On the CPU both directions take the kernels' plain versions (the wrappers
+dispatch on the device), so the backward formula is tested there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernels.sweep_variance import sweep_variance
+from .kernels.warp_grad import warp_grad
+
+
+class PairedCostVolume(torch.autograd.Function):
+    """(features [B, V, H, W, C], proj_matrices [B, V, 4, 4] f32,
+    depth_values [B, D] f32, out_dtype, depth_chunk) -> variance volume
+    [B, D, H, W, C] in ``out_dtype``. ``depth_chunk`` bounds the plain
+    path's memory on the CPU and is ignored by the kernel."""
+
+    @staticmethod
+    def forward(ctx, features, proj_matrices, depth_values, out_dtype, depth_chunk):
+        volume, warps = sweep_variance(
+            features, proj_matrices, depth_values, depth_chunk=depth_chunk, out_dtype=out_dtype,
+            emit_warps=True,
+        )
+        ctx.save_for_backward(warps, features, proj_matrices, depth_values)
+        return volume
+
+    @staticmethod
+    def backward(ctx, g_vol):
+        warps, features, proj, depth = ctx.saved_tensors
+        B, V = features.shape[:2]
+        coeff = 2.0 / V
+        dfeat = torch.empty(features.shape, dtype=torch.float32, device=features.device)
+        for b in range(B):  # one sample at a time bounds the f32 temporaries
+            ref = features[b, 0].float()
+            wf = warps[b].float()  # [V-1, D, H, W, C]
+            g32 = g_vol[b].float() * coeff
+            mean = (ref[None] + wf.sum(0)) * (1.0 / V)
+            dfeat[b, 0] = (g32 * (ref[None] - mean)).sum(0)
+            for v in range(V - 1):
+                t_v = g32 * (wf[v] - mean)
+                dfeat[b, v + 1] = warp_grad(t_v[None], proj[b : b + 1, v + 1], proj[b : b + 1, 0], depth[b : b + 1])[0]
+        return dfeat.to(features.dtype), None, None, None, None
+
+
+def paired_cost_volume(
+    features: torch.Tensor,
+    proj_matrices: torch.Tensor,
+    depth_values: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    depth_chunk: int | None = None,
+) -> torch.Tensor:
+    """Differentiable variance cost volume for training: features
+    [B, V, H, W, C] (view 0 = reference), proj_matrices [B, V, 4, 4] f32,
+    depth_values [B, D] f32 -> [B, D, H, W, C] in ``out_dtype`` (default: the
+    features dtype), through K1 (emitting the warps) forward and K3 backward
+    on the card."""
+    return PairedCostVolume.apply(
+        features, proj_matrices, depth_values, out_dtype or features.dtype, depth_chunk
+    )

@@ -96,3 +96,24 @@ def warp_src_feature(
     source image."""
     out = warp_src_feature_ncdhw(src_fea, src_proj, ref_proj, depth_values)
     return out.permute(0, 2, 3, 4, 1).to(src_fea.dtype)
+
+
+def warp_src_feature_grad(
+    g: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth_values: torch.Tensor,
+) -> torch.Tensor:
+    """Gradient of ``warp_src_feature`` with respect to the source features:
+    the cotangent g [B, D, H, W, C] of the warped volume -> dsrc [B, H, W, C]
+    f32. The coordinates are constants (no gradient reaches the cameras or
+    the depth values), so the result does not depend on the features and is
+    taken at zero features. This is the plain version of the warp-backward
+    kernel (``ops/kernels/warp_grad.py``): ``F.grid_sample``'s own backward."""
+    B, D, H, W, C = g.shape
+    # records a graph whatever the caller's mode (inference mode included)
+    with torch.inference_mode(False), torch.enable_grad():
+        src = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device, requires_grad=True)
+        out = warp_src_feature(src, src_proj.detach(), ref_proj.detach(), depth_values.detach())
+        (dsrc,) = torch.autograd.grad(out, src, g.float())
+    return dsrc

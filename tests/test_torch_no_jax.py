@@ -1,5 +1,5 @@
-"""The port imports and runs with JAX and flax unavailable, as on the
-machine with the card."""
+"""The port imports, serves and trains with JAX and flax unavailable, as on
+the machine with the card."""
 
 import os
 import subprocess
@@ -39,13 +39,32 @@ out = make_infer_step(model, "cpu")(imgs, projs[None], dv)
 assert out["depth"].shape == (1, 8, 8) and out["photometric_confidence"].shape == (1, 8, 8)
 assert torch.isfinite(out["depth"]).all() and torch.isfinite(out["photometric_confidence"]).all()
 assert ((out["depth"] >= 40.0 - 1e-3) & (out["depth"] <= 60.0 + 1e-3)).all()
+
+from scene_3dreconstruction_mvsnet_tpu_torch.train import make_optimizer, make_scheduler, make_train_step
+opt = make_optimizer(model, 1e-3)
+step = make_train_step(model, opt, make_scheduler(opt, "1:2", 1), "cpu")
+batch = {"imgs": imgs.repeat(2, 1, 1, 1, 1), "proj_matrices": projs[None].repeat(2, 1, 1, 1),
+         "depth_values": dv.repeat(2, 1), "depth": torch.full((2, 8, 8), 50.0), "mask": torch.ones(2, 8, 8)}
+aux = step(batch)
+assert model.training and torch.isfinite(aux["loss"]) and opt.param_groups[0]["lr"] == 5e-4
+assert all(p.grad is not None for p in model.parameters())
 shared = sorted(m for m in sys.modules if m.startswith("scene_3dreconstruction_mvsnet_tpu."))
-assert shared == ["scene_3dreconstruction_mvsnet_tpu.interop", "scene_3dreconstruction_mvsnet_tpu.interop.torch_import"], shared
+assert shared == [
+    "scene_3dreconstruction_mvsnet_tpu.data",  # the numpy-only loader the Trainer reuses
+    "scene_3dreconstruction_mvsnet_tpu.data.pipeline",
+    "scene_3dreconstruction_mvsnet_tpu.interop",
+    "scene_3dreconstruction_mvsnet_tpu.interop.torch_import",
+], shared
+assert {"scene_3dreconstruction_mvsnet_tpu_torch.train_cli", "scene_3dreconstruction_mvsnet_tpu_torch.train.loop",
+        "scene_3dreconstruction_mvsnet_tpu_torch.ops.paired_sweep",
+        "scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.warp_grad"} <= set(names)
 print("imported", len(names), "modules")
 """
 
 
 def test_port_imports_and_runs_without_jax():
+    """Every module of the port imports; one request is served and one
+    training step taken, on the CPU."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
     proc = subprocess.run(

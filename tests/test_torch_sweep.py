@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from scene_3dreconstruction_mvsnet_tpu import ops as jops
 from scene_3dreconstruction_mvsnet_tpu_torch import ops as tops
+from scene_3dreconstruction_mvsnet_tpu_torch.geometry.transforms import relative_projection
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import sweep_variance as k1
 from tests.test_sweep_variance import _rig
 
@@ -82,11 +83,14 @@ def test_sweep_wrapper_takes_plain_path_on_cpu():
 
 
 def test_homography_terms_are_the_plain_paths():
-    """The 9+3 floats the kernel takes per source view are the plain path's
-    relative projection, view by view."""
+    """The 9+3 floats the kernel takes per source view are, bit for bit, the
+    relative projection the plain sweep computes for a one-sample batch:
+    ``relative_projection(proj[:, v], proj[:, 0])`` on [1, 4, 4] slices, as
+    ``cost_volume_variance`` hands them to ``plane_sweep_coords``."""
     _, projs, _ = _rig(H, W, C, D, V, rot_deg=2.0)
     terms = k1.homography_terms(_t(projs))
     assert terms.shape == (V - 1, 12) and terms.dtype == torch.float32
+    proj = _t(projs[None])  # [B=1, V, 4, 4], the plain path's layout
     for v in range(1, V):
-        rel = _t(projs[v]) @ torch.linalg.inv(_t(projs[0]))
-        torch.testing.assert_close(terms[v - 1], torch.cat([rel[:3, :3].reshape(9), rel[:3, 3]]), rtol=0, atol=0)
+        rot, trans = relative_projection(proj[:, v], proj[:, 0])
+        torch.testing.assert_close(terms[v - 1], torch.cat([rot.reshape(9), trans.reshape(3)]), rtol=0, atol=0)
