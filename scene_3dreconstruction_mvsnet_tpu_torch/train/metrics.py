@@ -19,17 +19,12 @@ def _masked_per_image_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Te
     return (values * m).sum(dims) / m.sum(dims).clamp_min(1.0)
 
 
-def depth_metrics(
-    depth_est: torch.Tensor,
-    depth_gt: torch.Tensor,
-    mask: torch.Tensor,
-    thresholds: tuple[float, ...] = (1.0, 2.0, 4.0, 8.0),
-) -> dict[str, torch.Tensor]:
+def depth_metrics(depth_est: torch.Tensor, depth_gt: torch.Tensor, mask: torch.Tensor) -> dict[str, torch.Tensor]:
     """The reference's 5-metric suite over depth maps [B, H, W]: the masked
-    mean absolute depth error and the error rates above each threshold."""
+    mean absolute depth error and the error rates above 1, 2, 4 and 8."""
     valid = mask > 0.5
     err = (depth_est - depth_gt).abs()
     out = {"abs_depth_error": _masked_per_image_mean(err, valid).mean()}
-    for t in thresholds:
-        out[f"thres{int(t)}mm_error"] = _masked_per_image_mean((err > t).float(), valid).mean()
+    for t in (1, 2, 4, 8):
+        out[f"thres{t}mm_error"] = _masked_per_image_mean((err > t).float(), valid).mean()
     return out

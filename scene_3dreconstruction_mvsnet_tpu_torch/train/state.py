@@ -22,13 +22,11 @@ from .metrics import depth_metrics
 BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
 
 
-def make_optimizer(
-    model: nn.Module, lr: float, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999
-) -> torch.optim.Adam:
-    """torch.optim.Adam(lr, betas, eps 1e-8, weight_decay): the decay term is
-    added to the gradient before the moment updates, as the JAX package's
-    optax chain does (``train/state.py:44-55``)."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(b1, b2), eps=1e-8, weight_decay=weight_decay)
+def make_optimizer(model: nn.Module, lr: float, weight_decay: float = 0.0) -> torch.optim.Adam:
+    """torch.optim.Adam(lr, betas (0.9, 0.999), eps 1e-8, weight_decay): the
+    decay term is added to the gradient before the moment updates, as the JAX
+    package's optax chain does (``train/state.py:44-55``)."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
 def batch_to_device(batch: Mapping[str, Any], device: torch.device) -> dict[str, torch.Tensor]:

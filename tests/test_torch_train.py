@@ -140,14 +140,19 @@ def test_train_step_matches_jax(train_batch):
     running statistics and the parameters after Adam.
 
     The JAX step runs with 64-bit floats (its sweep and regression still
-    cast to f32), and the gradients are compared with the port's model in
-    f64 too. In f32 the training gradient at these sizes is ill-conditioned
-    in both packages: measured here, the f32 gradients of each are 1-7 %
-    off their own f64 ones (flax's E[x^2] - E[x]^2 variance adds to JAX's),
-    while the two f64 gradients agree to 1e-4. The port's f32 step is held
-    to the f64 reference where f32 is well-conditioned: loss, running
-    statistics, and the parameters after Adam (whose first step moves each
-    parameter by at most lr, whatever the gradient's rounding)."""
+    cast to f32), and the port's model runs it in f64 and in f32. In f32 the
+    training gradient at these sizes is ill-conditioned in both packages:
+    measured here, the f32 gradients of each are 1-7 % off their own f64
+    ones (flax's E[x^2] - E[x]^2 variance adds to JAX's), while the two f64
+    gradients agree to 1e-4. So the port's f64 gradients are held to the
+    f64 reference at 1e-3 x max|g| per tensor, and its f32 ones at
+    0.1 x max|g|, which a flipped or dropped term still breaks.
+
+    Adam's first step moves a parameter by lr * g / (|g| + eps): by lr in
+    the sign of g wherever |g| is far above eps. Every parameter is held
+    within that one step (2 x lr); where the reference gradient is larger
+    than the gradient tolerance and than 1e-5 (1000 x eps), so that its
+    sign is certain, at 1e-2 x lr, which sees the update's direction."""
     batch = train_batch
     jmodel = jmodels.MVSNet()
     jvars = jax.device_get(
@@ -162,7 +167,7 @@ def test_train_step_matches_jax(train_batch):
     jnew = export_torch_state_dict(new_state.variables)
     largest = max(np.abs(g).max() for g in jgrads.values())
 
-    for dtype in (torch.float64, torch.float32):
+    for dtype, g_tol in ((torch.float64, 1e-3), (torch.float32, 0.1)):
         model = load_jax_variables(MVSNet(dtype=dtype if dtype == torch.float64 else None), jvars).to(dtype)
         opt = make_optimizer(model, LR)
         step = make_train_step(model, opt, make_scheduler(opt, "10:2", 100), "cpu")
@@ -174,16 +179,18 @@ def test_train_step_matches_jax(train_batch):
         params = dict(model.named_parameters())
         assert len(params) == 55  # 23 in FeatureNet, 32 in CostRegNet
         for name, p in params.items():
-            np.testing.assert_allclose(p.detach().double().numpy(), jnew["module." + name], atol=2 * LR, err_msg=name)
-            if dtype == torch.float32:
-                continue
-            g, want = p.grad.numpy(), jgrads["module." + name]
+            g, want = p.grad.double().numpy(), jgrads["module." + name]
+            new, want_new = p.detach().double().numpy(), jnew["module." + name]
+            np.testing.assert_allclose(new, want_new, atol=2 * LR, err_msg=name)
             if name == "cost_regularization.prob.bias":
                 # the softmax over depth ignores a constant shift of the
                 # logits: this gradient is 0 up to rounding on both sides
                 assert np.abs(g).max() < 1e-5 * largest and np.abs(want).max() < 1e-5 * largest
-            else:
-                np.testing.assert_allclose(g, want, atol=1e-3 * np.abs(want).max(), err_msg=name)
+                continue
+            np.testing.assert_allclose(g, want, atol=g_tol * np.abs(want).max(), err_msg=name)
+            sure = (np.abs(want) > g_tol * np.abs(want).max()) & (np.abs(want) > 1e-5)
+            assert sure.any(), name
+            np.testing.assert_allclose(new[sure], want_new[sure], atol=1e-2 * LR, err_msg=name)
         for name, buf in model.named_buffers():  # rtol 1e-4, with 1e-4 x max for means near 0
             if name.endswith(("running_mean", "running_var")):
                 want = jnew["module." + name]
