@@ -81,6 +81,18 @@ K3_ATOL = 1e-4  # x max|plain|: the bound the JAX package holds its TPU kernel t
 PAIRED_TOL = {"f32": 2e-4, "bf16": 2e-2}  # x max|plain grad|, as tests/test_paired_sweep.py
 K4_ULP_FLOOR = 1e-3  # x max|plain|: K4's ulps are counted at no smaller a value (ReLU's kink)
 
+# the least time the card could take for a kernel's work (its bound_ms): the
+# bytes it must move (each input read once, each output written once) over
+# the H100 SXM's memory rate, or its operations over the peak rate for their
+# type, whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16 tensor cores": 989e12}
+NO_LIBRARY = {  # kernels that no single PyTorch call computes
+    "sweep_variance": "no PyTorch call warps several views and takes their variance in one pass",
+    "softmax_regression": "no PyTorch call takes the softmax, the depth expectation and the 4-window confidence "
+                          "together",
+}
+
 # the eval phase: a 16-view ring acquisition at the headline resolution
 EVAL_VIEWS = 16
 EVAL_DEPTH_TOL = 2e-2  # x depth range: --pallas_conv0 against the module conv0, as the JAX
@@ -104,17 +116,57 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed_pair(kernel_fn, plain_fn, iters: int, plain_iters: int) -> tuple[float, float]:
-    """Warm both, then time plain, kernel, kernel, plain; the mean of each pair."""
+def timed_pair(kernel_fn, plain_fn, iters: int, plain_iters: int, library_fn=None):
+    """Warm each, then time plain, library, kernel, kernel, library, plain in
+    turns; the mean of each pair: (kernel ms, plain ms, library ms or None)."""
     import torch
 
-    kernel_fn(), plain_fn()
+    fns = [kernel_fn, plain_fn] + ([library_fn] if library_fn else [])
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     p1 = cuda_time_ms(plain_fn, plain_iters)
+    l1 = cuda_time_ms(library_fn, iters) if library_fn else None
     k1 = cuda_time_ms(kernel_fn, iters)
     k2 = cuda_time_ms(kernel_fn, iters)
+    l2 = cuda_time_ms(library_fn, iters) if library_fn else None
     p2 = cuda_time_ms(plain_fn, plain_iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if library_fn else None
+
+
+def bound(nbytes: float, flops: float, peak: str) -> dict:
+    """bound_ms and what sets it: ``nbytes`` at HBM_BYTES_PER_S against
+    ``flops`` at PEAK_FLOPS[peak]."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[peak] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops, "bound_peak": peak}
+
+
+def sweep_grid(src_proj, ref_proj, depth_values, h: int, w: int):
+    """One source view's sample grid for every (plane, ref pixel), as the
+    plain warp builds it for ``F.grid_sample`` ([1, D*h, w, 2]), and the
+    number of its bilinear taps that fall inside the source image (the taps
+    the kernels read; the others are zeros and are skipped)."""
+    import torch
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.geometry.transforms import plane_sweep_coords
+
+    px, py = plane_sweep_coords(src_proj[None], ref_proj[None], depth_values[None], h, w)
+    gx, gy = px / ((w - 1) / 2.0) - 1.0, py / ((h - 1) / 2.0) - 1.0
+    grid = torch.stack([gx, gy], dim=-1).reshape(1, -1, w, 2)
+    x0, y0 = torch.floor(((gx + 1.0) * w - 1.0) / 2.0), torch.floor(((gy + 1.0) * h - 1.0) / 2.0)
+    taps = sum(int(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum().item())
+               for dx in (0, 1) for dy in (0, 1))
+    return grid, taps
+
+
+def sweep_flops(proj, depth_values, h: int, w: int, c: int) -> int:
+    """The variance sweep's f32 operations on this rig: per channel, 2 for
+    each tap inside a source image, 3 per source view for the moments and 5
+    for the reference view and the variance, at every (plane, pixel)."""
+    taps = sum(sweep_grid(proj[v], proj[0], depth_values, h, w)[1] for v in range(1, proj.shape[0]))
+    points = depth_values.shape[0] * h * w
+    return c * (2 * taps + 3 * (proj.shape[0] - 1) * points + 5 * points)
 
 
 def ring_extrinsics(cam: int, n_cams: int):
@@ -230,23 +282,28 @@ def phase_kernels(gen) -> list[dict]:
         if not err_f32 <= SWEEP_ATOL_F32 * scale or not err_bf <= SWEEP_ATOL_BF16 * scale_bf:
             raise AssertionError("sweep_variance kernel disagrees with its plain version")
         # time the main path's bf16 configuration: bf16 features -> bf16 volume
-        k_ms, p_ms = timed_pair(
+        k_ms, p_ms, _ = timed_pair(
             lambda: sweep_variance_cuda(feats_bf[0], proj[0], depth_values[0]),
             lambda: cost_volume_variance(feats_bf, proj, depth_values),
             iters=10, plain_iters=3,
         )
-        k_ms32, p_ms32 = timed_pair(
+        k_ms32, p_ms32, _ = timed_pair(
             lambda: sweep_variance_cuda(feats[0], proj[0], depth_values[0]),
             lambda: cost_volume_variance(feats, proj, depth_values),
             iters=10, plain_iters=3,
         )
-        log("kernels", f"sweep_variance bf16->bf16: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
-                       f"f32->f32: kernel {k_ms32:.3f} ms, plain {p_ms32:.3f} ms")
+        hc = feats.shape[2:]
+        k1_bound = bound(feats_bf.numel() * 2 + D * hc.numel() * 2,
+                         sweep_flops(proj[0], depth_values[0], *hc), "f32")
+        log("kernels", f"sweep_variance bf16->bf16: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                       f"{k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}); f32->f32: kernel {k_ms32:.3f} ms, "
+                       f"plain {p_ms32:.3f} ms; library call: none ({NO_LIBRARY['sweep_variance']})")
         rows.append({
             "name": "sweep_variance", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/sweep_variance.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/sweep_variance.py:607",
             "max_abs_err": err_f32, "tol": SWEEP_ATOL_F32 * scale, "ms": k_ms, "plain_ms": p_ms,
+            **k1_bound, "library_ms": None, "library_none": NO_LIBRARY["sweep_variance"],
             "max_abs_err_bf16": err_bf, "tol_bf16": SWEEP_ATOL_BF16 * scale_bf, "ms_f32": k_ms32,
             "plain_ms_f32": p_ms32,
         })
@@ -267,17 +324,22 @@ def phase_kernels(gen) -> list[dict]:
                        f"pixels excluded (expected index near an integer)")
         if not d_err <= REG_DEPTH_TOL * (DEPTH_MAX - DEPTH_MIN) or not c_err <= REG_CONF_ATOL:
             raise AssertionError("softmax_regression kernel disagrees with its plain version")
-        k_ms, p_ms = timed_pair(
+        k_ms, p_ms, _ = timed_pair(
             lambda: softmax_regression_cuda(cost, depth_values),
             lambda: regress_depth_and_confidence(cost, depth_values),
             iters=50, plain_iters=20,
         )
-        log("kernels", f"softmax_regression: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        # per cost element: the max, the shift, exp, the sum and the weighted sum
+        k2_bound = bound(cost.numel() * 4 + 2 * depth.numel() * 4, 5 * cost.numel(), "f32")
+        log("kernels", f"softmax_regression: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                       f"{k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}); library call: none "
+                       f"({NO_LIBRARY['softmax_regression']})")
         rows.append({
             "name": "softmax_regression", "route": "triton",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/ops/kernels/softmax_regression.py",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/softmax_regression.py:86",
             "max_abs_err": d_err, "tol": REG_DEPTH_TOL * (DEPTH_MAX - DEPTH_MIN), "ms": k_ms, "plain_ms": p_ms,
+            **k2_bound, "library_ms": None, "library_none": NO_LIBRARY["softmax_regression"],
             "conf_max_abs_err": c_err, "conf_tol": REG_CONF_ATOL, "excluded_pixels": n_excl,
         })
     return rows
@@ -300,6 +362,8 @@ def phase_eval_kernels(gen) -> list[dict]:
     )
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.plane_sweep_warp import plane_sweep_warp_cuda
 
+    import torch.nn.functional as F
+
     dev = torch.device("cuda")
     rows = []
     with torch.inference_mode():
@@ -314,22 +378,35 @@ def phase_eval_kernels(gen) -> list[dict]:
         ulps = bf16_ulps(out, ref, floor)
         relu_share = (ref == 0).float().mean().item()
         del out, ref
-        k_ms, p_ms = timed_pair(
+        # the library yardstick: cuDNN's bf16 conv3d on the channels-last view
+        # of the volume (no copy), BatchNorm folded into its weight and bias
+        w_fold = (conv0.conv.weight * scale[:, None, None, None, None]).to(torch.bfloat16)
+        b_fold = bias.to(torch.bfloat16)
+        x_cl = x.permute(0, 4, 1, 2, 3)
+        k_ms, p_ms, lib_ms = timed_pair(
             lambda: conv0_bn_relu_cuda(x, conv0.conv.weight, scale, bias),
             lambda: conv0_bn_relu_plain(x, conv0.conv.weight, scale, bias),
             iters=5, plain_iters=3,
+            library_fn=lambda: torch.relu_(F.conv3d(x_cl, w_fold, b_fold, padding=1)),
         )
         module_ms = cuda_time_ms(lambda: conv0(x.permute(0, 4, 1, 2, 3).contiguous()), 5)
+        B_, D_, h_, w_ = x.shape[:4]
+        k4_bound = bound(x.numel() * 2 + B_ * 8 * D_ * h_ * w_ * 2,
+                         2 * 32 * 8 * B_ * (3 * D_ - 2) * (3 * h_ - 2) * (3 * w_ - 2), "bf16 tensor cores")
         log("kernels", f"conv0_fused (headline, bf16): max|err| {err:.3e} = {ulps:.3f} bf16 ulp (limit 1, ulp "
                        f"floor {floor:.3e}; {100 * relu_share:.1f} % zeros); kernel {k_ms:.3f} ms, plain (f32 "
-                       f"conv) {p_ms:.3f} ms, module conv0 (cuDNN bf16 conv + BN + ReLU + permute) {module_ms:.3f} ms")
+                       f"conv) {p_ms:.3f} ms, library (relu(conv3d) on the channels-last view, cuDNN bf16, BN "
+                       f"folded) {lib_ms:.3f} ms, module conv0 (permute + cuDNN bf16 conv + BN + ReLU) "
+                       f"{module_ms:.3f} ms; bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']})")
         if not ulps <= 1.0:
             raise AssertionError("conv0_fused kernel disagrees with its plain version")
         rows.append({
             "name": "conv0_fused", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/conv0_fused.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/conv0_fused.py:237",
-            "max_abs_err": err, "max_ulp": ulps, "tol_ulp": 1.0, "ms": k_ms, "plain_ms": p_ms, "module_ms": module_ms,
+            "max_abs_err": err, "max_ulp": ulps, "tol_ulp": 1.0, "ms": k_ms, "plain_ms": p_ms, **k4_bound,
+            "library_ms": lib_ms, "library_call": "torch.relu_(F.conv3d(x.permute(0, 4, 1, 2, 3), w_fold, b_fold))",
+            "module_ms": module_ms,
         })
         del x
 
@@ -337,6 +414,7 @@ def phase_eval_kernels(gen) -> list[dict]:
         proj = torch.from_numpy(projs).to(dev)
         depth = torch.from_numpy(dv).to(dev)
         src32 = torch.rand((H // 4, W // 4, 32), generator=gen, device=dev)
+        grid, taps = sweep_grid(proj[1], proj[0], depth, H // 4, W // 4)
         errs, times = {}, {}
         for tag, src in (("f32", src32), ("bf16", src32.to(torch.bfloat16))):
             out = plane_sweep_warp_cuda(src, proj[1], proj[0], depth)
@@ -344,15 +422,23 @@ def phase_eval_kernels(gen) -> list[dict]:
             torch.cuda.synchronize()
             errs[tag] = ((out.float() - ref.float()).abs().max().item(), bf16_ulps(out, ref))
             del out, ref
+            # the library yardstick: grid_sample on the precomputed grid, in f32
+            # (its grid takes the input's dtype, and a bf16 grid is another function)
+            src_nchw = src.float().permute(2, 0, 1)[None]
             times[tag] = timed_pair(
                 lambda: plane_sweep_warp_cuda(src, proj[1], proj[0], depth),
                 lambda: warp_src_feature(src[None], proj[None, 1], proj[None, 0], depth[None]),
                 iters=10, plain_iters=3,
+                library_fn=lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                                 align_corners=False),
             )
+        out_elems = D * src32.numel()
+        k5_bound = bound(src32.numel() * 2 + out_elems * 2, 2 * 32 * taps, "f32")
         log("kernels", f"plane_sweep_warp (headline, one view): f32 max|err| {errs['f32'][0]:.3e} (atol 0), bf16 "
                        f"max|err| {errs['bf16'][0]:.3e} = {errs['bf16'][1]:.3f} ulp (limit 1); bf16 kernel "
-                       f"{times['bf16'][0]:.3f} ms, plain {times['bf16'][1]:.3f} ms; f32 kernel {times['f32'][0]:.3f} "
-                       f"ms, plain {times['f32'][1]:.3f} ms")
+                       f"{times['bf16'][0]:.3f} ms, plain {times['bf16'][1]:.3f} ms, library (grid_sample, f32) "
+                       f"{times['bf16'][2]:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms ({k5_bound['bound_by']}); "
+                       f"f32 kernel {times['f32'][0]:.3f} ms, plain {times['f32'][1]:.3f} ms")
         if errs["f32"][0] != 0.0 or errs["bf16"][1] > 1.0:
             raise AssertionError("plane_sweep_warp kernel disagrees with the plain warp")
         rows.append({
@@ -360,6 +446,8 @@ def phase_eval_kernels(gen) -> list[dict]:
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/plane_sweep_warp.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/plane_sweep_warp.py:358",
             "max_abs_err": errs["f32"][0], "tol": 0.0, "ms": times["bf16"][0], "plain_ms": times["bf16"][1],
+            **k5_bound, "library_ms": times["bf16"][2],
+            "library_call": "F.grid_sample(src, grid) on the precomputed grid, f32",
             "bf16_max_abs_err": errs["bf16"][0], "bf16_max_ulp": errs["bf16"][1], "bf16_tol_ulp": 1.0,
             "ms_f32": times["f32"][0], "plain_ms_f32": times["f32"][1],
         })
@@ -453,7 +541,7 @@ def run_eval_cli(argv: list[str], log_path: Path, stdin_text: str | None = None)
         sys.stdin = stdin
 
 
-def phase_eval(repo: Path) -> dict[str, int]:
+def phase_eval(repo: Path) -> dict[str, tuple[int, int, str]]:
     """Drive eval_cli four times on a synthetic 16-view acquisition, with the
     launch counts set to 0 before each run and read after it, and hold what
     it wrote; returns K4's and K5's launch counts from their main-path runs."""
@@ -553,8 +641,8 @@ def phase_eval(repo: Path) -> dict[str, int]:
     if min(ply_points.values()) <= 0 or warp_dumps == 0:
         raise AssertionError(f"empty PLY or no warp dumps: {ply_points}, {warp_dumps}")
     shutil.rmtree(work, ignore_errors=True)
-    return {"conv0_fused": rep["fused"]["launches"]["conv0_fused"],
-            "plane_sweep_warp": rep["debug"]["launches"]["plane_sweep_warp"]}
+    return {"conv0_fused": (rep["fused"]["launches"]["conv0_fused"], n, "depth map"),
+            "plane_sweep_warp": (rep["debug"]["launches"]["plane_sweep_warp"], V - 1, "dumped source view")}
 
 
 def _texture(x, y):
@@ -670,21 +758,25 @@ def phase_train_kernels(gen) -> list[dict]:
                 lambda: sweep_variance_cuda(f[0], proj[0], dv[0], emit_warps=True),
                 lambda: cost_volume_variance(f, proj, dv, emit_warps=True),
                 iters=10, plain_iters=3,
-            )
+            )[:2]
             times[tag + "_no_emit"] = cuda_time_ms(lambda: sweep_variance_cuda(f[0], proj[0], dv[0]), 10)
         log("kernels", f"sweep_variance emit (recipe): f32 warps max|err| {errs['f32'][0]:.3e} (atol 0), "
                        f"bf16 warps max|err| {errs['bf16'][0]:.3e} = {errs['bf16'][1]:.3f} ulp (limit 1 ulp); "
                        "variance identical with and without emit")
         if errs["f32"][0] != 0.0 or errs["bf16"][1] > 1.0:
             raise AssertionError("K1's emitted warps disagree with the plain warp")
+        hc = feats32.shape[2:]
+        emit_bound = bound(feats32.numel() * 2 + TV * TD * hc.numel() * 2, sweep_flops(proj[0], dv[0], *hc), "f32")
         log("kernels", f"sweep_variance emit (recipe): bf16 kernel {times['bf16'][0]:.3f} ms "
-                       f"(no emit {times['bf16_no_emit']:.3f} ms), plain {times['bf16'][1]:.3f} ms; f32 kernel "
+                       f"(no emit {times['bf16_no_emit']:.3f} ms), plain {times['bf16'][1]:.3f} ms, bound "
+                       f"{emit_bound['bound_ms']:.3f} ms ({emit_bound['bound_by']}); f32 kernel "
                        f"{times['f32'][0]:.3f} ms (no emit {times['f32_no_emit']:.3f} ms), plain {times['f32'][1]:.3f} ms")
         rows.append({
             "name": "sweep_variance_emit", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/sweep_variance.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/sweep_variance.py:607",
             "max_abs_err": errs["f32"][0], "tol": 0.0, "ms": times["bf16"][0], "plain_ms": times["bf16"][1],
+            **emit_bound, "library_ms": None, "library_none": NO_LIBRARY["sweep_variance"],
             "bf16_max_abs_err": errs["bf16"][0], "bf16_max_ulp": errs["bf16"][1], "bf16_tol_ulp": 1.0,
             "ms_no_emit": times["bf16_no_emit"], "ms_f32": times["f32"][0], "plain_ms_f32": times["f32"][1],
             "ms_f32_no_emit": times["f32_no_emit"],
@@ -699,20 +791,31 @@ def phase_train_kernels(gen) -> list[dict]:
         scale = ref.abs().max().item()
         err = (out - ref).abs().max().item()
         del out, ref
-        k_ms, p_ms = timed_pair(
+        # the library yardstick: grid_sample's input gradient on the precomputed grid
+        h_, w_ = hc[:2]
+        grid, taps = sweep_grid(proj[0, 1], proj[0, 0], dv[0], h_, w_)
+        g_nchw = g[0].permute(3, 0, 1, 2).reshape(1, 32, -1, w_)  # a view of g
+        zeros = torch.zeros((1, 32, h_, w_), device=dev)
+        k_ms, p_ms, lib_ms = timed_pair(
             lambda: warp_grad_cuda(g[0], proj[0, 1], proj[0, 0], dv[0]),
             lambda: warp_src_feature_grad(g, proj[:, 1], proj[:, 0], dv),
             iters=10, plain_iters=5,
+            library_fn=lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, zeros, grid, 0, 0, False,
+                                                                        [True, False]),
         )
+        k3_bound = bound(g[0].numel() * 4 + hc.numel() * 4, 2 * 32 * taps, "f32")
         log("kernels", f"warp_grad (recipe, one view): max|err| {err:.3e} vs atol {K3_ATOL * scale:.3e} "
-                       f"(max|plain| {scale:.4f}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+                       f"(max|plain| {scale:.4f}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
+                       f"(grid_sampler_2d_backward, input gradient) {lib_ms:.3f} ms, bound {k3_bound['bound_ms']:.3f} "
+                       f"ms ({k3_bound['bound_by']})")
         if not err <= K3_ATOL * scale:
             raise AssertionError("warp_grad kernel disagrees with its plain version")
         rows.append({
             "name": "warp_grad", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/warp_grad.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/warp_grad.py:517",
-            "max_abs_err": err, "tol": K3_ATOL * scale, "ms": k_ms, "plain_ms": p_ms,
+            "max_abs_err": err, "tol": K3_ATOL * scale, "ms": k_ms, "plain_ms": p_ms, **k3_bound,
+            "library_ms": lib_ms, "library_call": "torch.ops.aten.grid_sampler_2d_backward(g, src, grid, ...)[0]",
         })
     return rows
 
@@ -830,7 +933,7 @@ def device_busy(step, batch) -> tuple[float, float] | None:
     return wall, busy / 1e3
 
 
-def phase_train(gen) -> dict[str, int]:
+def phase_train(gen) -> dict[str, tuple[int, int, str]]:
     import torch
 
     from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
@@ -882,6 +985,7 @@ def phase_train(gen) -> dict[str, int]:
         raise AssertionError(f"the loss on the repeated batch did not fall over the bf16 steps: {losses['bf16']}")
     if launches["sweep_variance_emit"] < steps * TB or launches["warp_grad"] < steps * TB * (TV - 1):
         raise AssertionError(f"K1-emit or K3 was not launched on every step: {launches}")
+    launches = {k: (n, steps, "train step") for k, n in launches.items()}
     median = {tag: statistics.median(s[1:]) if len(s) > 1 else s[0] for tag, s in seconds.items()}
     log("train", f"median seconds per step after the first: bf16 {median['bf16']:.4f}, f32 {median['f32']:.4f}; "
                  f"peak device memory {peak:.2f} GiB")
@@ -945,7 +1049,7 @@ def check_maps(depth, conf, tag: str) -> None:
         )
 
 
-def phase_slice(gen) -> dict[str, int]:
+def phase_slice(gen) -> dict[str, tuple[int, int, str]]:
     import torch
 
     from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
@@ -987,6 +1091,7 @@ def phase_slice(gen) -> dict[str, int]:
     log("slice", f"served {n_req} requests; kernel launches {launches}")
     if min(launches.values()) < n_req:
         raise AssertionError(f"a kernel was launched fewer times than the {n_req} requests: {launches}")
+    launches = {k: (n, n_req, "request") for k, n in launches.items()}
 
     for tag in steps:
         for i, out in enumerate(outputs[tag]):
@@ -1047,7 +1152,9 @@ def main() -> None:
     launches.update(phase_train(gen))  # K1-emit and K3 on the training path
     launches.update(phase_eval(repo))  # K4 and K5 on the eval CLI's path
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        n, units, unit = launches[row["name"]]
+        row["launches"] = n
+        row["launches_per"] = f"{n / units:g} per {unit}"
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "scene_3dreconstruction_mvsnet_tpu"))
     if leaked:

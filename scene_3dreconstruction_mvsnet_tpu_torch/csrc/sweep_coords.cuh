@@ -4,8 +4,9 @@
 //
 // The sweep-variance kernel (sweep_variance.cu), the single-view warp kernel
 // (plane_sweep_warp.cu) and the warp-backward kernel (warp_grad.cu) all take
-// their coordinates from sweep_sample_coord, so the backward scatters to
-// exactly the taps, with exactly the weights, that the forward gathered from.
+// their coordinates from pixel_ray and plane_coord (the per-pixel and the
+// per-plane part of one computation), so the backward scatters to exactly the
+// taps, with exactly the weights, that the forward gathered from.
 //
 // Arithmetic order: the plain path's sequence of f32 operations
 // (ops/plane_sweep.py -> geometry/transforms.py::plane_sweep_coords,
@@ -62,29 +63,66 @@ __device__ __forceinline__ void store_group(__nv_bfloat16* p, const float (&v)[k
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// store_group with the streaming (evict-first) hint: for outputs written once
+// and not read back by the kernel, so they do not push the features it gathers
+// from out of L2
+__device__ __forceinline__ void store_group_stream(float* p, const float (&v)[kGroup]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
+}
+
+__device__ __forceinline__ void store_group_stream(__nv_bfloat16* p, const float (&v)[kGroup]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kGroup / 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), raw);
+}
+
 // 1 / ((n - 1) / 2) as the plain path rounds it: the reference's
 // align_corners=True normalisation divides by (n - 1) / 2.
 __device__ __forceinline__ float inv_half_extent(int n) {
   return __fdiv_rn(1.0f, 0.5f * static_cast<float>(n - 1));
 }
 
-// grid_sample's unnormalised source coordinate (ix, iy) of reference pixel
-// (xf, yf) on the plane at depth dep. hm: the 12 floats of
-// src_proj @ inv(ref_proj), R row-major then t.
-__device__ __forceinline__ void sweep_sample_coord(const float* __restrict__ hm, float xf, float yf,
-                                                   float dep, float inv_half_w, float inv_half_h,
-                                                   int W, int H, float& ix, float& iy) {
-  const float rx = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(hm + 0), xf), __fmul_rn(__ldg(hm + 1), yf)), __ldg(hm + 2));
-  const float ry = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(hm + 3), xf), __fmul_rn(__ldg(hm + 4), yf)), __ldg(hm + 5));
-  const float rz = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(hm + 6), xf), __fmul_rn(__ldg(hm + 7), yf)), __ldg(hm + 8));
-  const float z = __fadd_rn(__fmul_rn(rz, dep), __ldg(hm + 11));
-  const float px = __fdiv_rn(__fadd_rn(__fmul_rn(rx, dep), __ldg(hm + 9)), z);
-  const float py = __fdiv_rn(__fadd_rn(__fmul_rn(ry, dep), __ldg(hm + 10)), z);
+// R (x, y, 1) of reference pixel (x, y) for one source view: the part of
+// the sample coordinate that does not depend on the depth plane. A kernel
+// that walks planes for a fixed pixel computes it once.
+struct Ray {
+  float x, y, z;
+};
+
+// hm: the 12 floats of src_proj @ inv(ref_proj), R row-major then t.
+__device__ __forceinline__ Ray pixel_ray(const float* __restrict__ hm, float xf, float yf) {
+  Ray r;
+  r.x = __fadd_rn(__fadd_rn(__fmul_rn(hm[0], xf), __fmul_rn(hm[1], yf)), hm[2]);
+  r.y = __fadd_rn(__fadd_rn(__fmul_rn(hm[3], xf), __fmul_rn(hm[4], yf)), hm[5]);
+  r.z = __fadd_rn(__fadd_rn(__fmul_rn(hm[6], xf), __fmul_rn(hm[7], yf)), hm[8]);
+  return r;
+}
+
+// grid_sample's unnormalised source coordinate (ix, iy) of the pixel whose
+// ray is r, on the plane at depth dep: the per-plane part (z, the two
+// divides, the normalisations).
+__device__ __forceinline__ void plane_coord(const Ray& r, const float* __restrict__ hm, float dep,
+                                            float inv_half_w, float inv_half_h, int W, int H, float& ix,
+                                            float& iy) {
+  const float z = __fadd_rn(__fmul_rn(r.z, dep), hm[11]);
+  const float px = __fdiv_rn(__fadd_rn(__fmul_rn(r.x, dep), hm[9]), z);
+  const float py = __fdiv_rn(__fadd_rn(__fmul_rn(r.y, dep), hm[10]), z);
   // reference normalisation, then grid_sample's align_corners=False rule
   const float gx = __fsub_rn(__fmul_rn(px, inv_half_w), 1.0f);
   const float gy = __fsub_rn(__fmul_rn(py, inv_half_h), 1.0f);
   ix = 0.5f * __fmaf_rn(__fadd_rn(gx, 1.0f), static_cast<float>(W), -1.0f);
   iy = 0.5f * __fmaf_rn(__fadd_rn(gy, 1.0f), static_cast<float>(H), -1.0f);
+}
+
+// The coordinate of reference pixel (xf, yf) on the plane at depth dep: both
+// parts in one.
+__device__ __forceinline__ void sweep_sample_coord(const float* __restrict__ hm, float xf, float yf,
+                                                   float dep, float inv_half_w, float inv_half_h,
+                                                   int W, int H, float& ix, float& iy) {
+  plane_coord(pixel_ray(hm, xf, yf), hm, dep, inv_half_w, inv_half_h, W, H, ix, iy);
 }
 
 // The four bilinear taps of (ix, iy): the north-west tap (x0, y0) and
@@ -130,17 +168,12 @@ __device__ __forceinline__ void add_tap(const T* img, int H, int W, int C, int x
   for (int i = 0; i < kGroup; ++i) acc[i] = fmaf(v[i], w, acc[i]);
 }
 
-// The warped sample of one group of 8 channels: reference pixel (x, y) on the
-// plane at depth dep, bilinearly sampled with zeros padding from the source
-// map img [H, W, C] (already offset to the group's first channel). The
-// sweep-variance kernel takes each source view's sample from here, and the
-// single-view warp kernel stores it, so the two agree bit for bit.
+// The bilinear sample with zeros padding of one group of 8 channels at
+// (ix, iy) from the source map img [H, W, C] (already offset to the group's
+// first channel).
 template <typename T>
-__device__ __forceinline__ void warp_sample(const T* img, const float* __restrict__ hm, int x, int y, float dep,
-                                            float inv_half_w, float inv_half_h, int H, int W, int C,
-                                            float (&acc)[kGroup]) {
-  float ix, iy;
-  sweep_sample_coord(hm, static_cast<float>(x), static_cast<float>(y), dep, inv_half_w, inv_half_h, W, H, ix, iy);
+__device__ __forceinline__ void sample_at(const T* img, float ix, float iy, int H, int W, int C,
+                                          float (&acc)[kGroup]) {
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) acc[i] = 0.0f;
   Taps t;
@@ -150,6 +183,19 @@ __device__ __forceinline__ void warp_sample(const T* img, const float* __restric
     add_tap(img, H, W, C, t.x0, t.y0 + 1, t.w_sw, acc);
     add_tap(img, H, W, C, t.x0 + 1, t.y0 + 1, t.w_se, acc);
   }
+}
+
+// The warped sample of one group of 8 channels: reference pixel (x, y) on the
+// plane at depth dep. The sweep-variance kernel samples each source view with
+// pixel_ray, plane_coord and sample_at, the single-view warp kernel with this
+// composition of the same three, so the two agree bit for bit.
+template <typename T>
+__device__ __forceinline__ void warp_sample(const T* img, const float* __restrict__ hm, int x, int y, float dep,
+                                            float inv_half_w, float inv_half_h, int H, int W, int C,
+                                            float (&acc)[kGroup]) {
+  float ix, iy;
+  sweep_sample_coord(hm, static_cast<float>(x), static_cast<float>(y), dep, inv_half_w, inv_half_h, W, H, ix, iy);
+  sample_at(img, ix, iy, H, W, C, acc);
 }
 
 }  // namespace sweep

@@ -11,21 +11,40 @@
 // the thread already holds in registers, is also stored to a second output
 // [V-1, D, H, W, C] in the output dtype, for the backward's (w_v - mean).
 //
-// Bound on this card: at the headline shape (V=5, D=192, 216x288x32) the
-// kernel writes 382 M outputs (764 MB in bf16) and gathers 4 source views x
-// 4 taps per output from features that fit in the 50 MB L2 (about 4 MB per
-// view in bf16). The write to device memory and the L2/L1 gather traffic are
-// the limits; arithmetic is small. Emit adds one more write of the output's
-// size per source view (0.25 GB per view at the training recipe's
-// 192x128x160x32 in bf16).
+// Bound on this card, counted from the shapes: at the inference headline
+// (V=5, D=192, 216x288x32, bf16 in and out) the kernel writes 382 M outputs
+// (764 MB, 0.23 ms at 3.35 TB/s) and reads 20 MB of features; it does about
+// 49 f32 operations per output (4 views x (4 tap FMAs + 3 for the moments),
+// then the variance), 18 GFLOP, 0.27 ms at 67 TFLOP/s. The gather is not in
+// that count: 4 views x 4 taps x 16 B = 256 B through L1/L2 for every 16 B
+// written, from features that fit in the 50 MB L2. Measured on an H100
+// (scripts/torch_k1_probes.py), the store alone takes 0.24 ms and the
+// coordinates, taps and sums without it take nearly all the rest: the
+// per-output instructions and the tap loads bound the kernel, not memory.
+// Emit adds one more write of the output's size per source view (0.25 GB per
+// view at the training recipe's 192x128x160x32 in bf16).
 //
-// Design: one thread per (d, y, x, group of 8 channels). A group is 16 bytes
-// in bf16 (one vector load per tap) and the 4 threads of a pixel read one
-// contiguous 64-byte pixel, so a warp's taps and its stores are contiguous.
-// A GPU thread can load from any address, so none of the TPU kernel's window
-// planning, column-pair packing or row-skip is needed. The coordinate
-// arithmetic and the bilinear sample live in sweep_coords.cuh, shared with the
-// single-view warp and warp-backward kernels.
+// Design: one thread per (ref pixel, group of 8 channels) walks a chunk of
+// depth planes (blockIdx.y; the chunk comes from the wrapper's launch
+// geometry), so the work that depends on the pixel alone is done once per
+// chunk: the reference group is loaded once and R (x, y, 1) is kept in
+// registers, with the homography terms in shared memory; per plane only z,
+// the two divides and the taps remain. On the model's paths (C = 32, at most
+// 4 source views) the 4 lanes of a pixel split even that: lane g computes
+// source view g's coordinate and hands it to the other three by shuffle. A
+// group is 16 bytes in bf16 and the 4 threads of a pixel read one contiguous
+// 64-byte pixel, so a warp's taps and its stores are contiguous; walking
+// planes moves each view's footprint by well under a pixel per plane, so
+// consecutive planes' taps hit lines already in L1. The volume and the warps
+// are stored with the evict-first hint. What the probes measured decided the
+// rest: 80 registers for 3 blocks of 256 threads per SM, and one plane per
+// step (two planes' taps in flight need more registers, and the occupancy
+// lost costs more than the loads gained). The coordinate arithmetic and the
+// bilinear sample live in sweep_coords.cuh, shared with the single-view warp
+// and warp-backward kernels; every f32 operation is rounded in the plain
+// path's order, so the output equals the plain path's bit for bit. A GPU
+// thread can load from any address, so none of the TPU kernel's window
+// planning, column-pair packing or row-skip is needed.
 
 #include "sweep_coords.cuh"
 
@@ -35,94 +54,223 @@ using sweep::kGroup;
 
 constexpr int kThreads = 256;
 
-// features [V, H, W, C] (view 0 = reference), homography [V-1, 12] (R row-major,
-// then t) of src_proj @ inv(ref_proj), depth [D] -> out [D, H, W, C] and, when
-// kEmit, warps [V-1, D, H, W, C].
-template <typename TIn, typename TOut, bool kEmit>
-__global__ void __launch_bounds__(kThreads)
-sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict__ homography,
-                      const float* __restrict__ depth, TOut* __restrict__ out,
-                      TOut* __restrict__ warps, int V, int D, int H, int W, int C) {
-  const int groups = C / kGroup;
-  const int64_t total = static_cast<int64_t>(D) * H * W * groups;
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c0 = static_cast<int>(idx % groups) * kGroup;
-  const int64_t pix = idx / groups;  // (d * H + y) * W + x
-  const int x = static_cast<int>(pix % W);
-  const int y = static_cast<int>((pix / W) % H);
-  const int d = static_cast<int>(pix / (static_cast<int64_t>(W) * H));
+// Settings that scripts/torch_k1_probes.py varies (-D) to measure them.
+#ifndef SWEEP_PLANES_PER_STEP
+#define SWEEP_PLANES_PER_STEP 1  // planes whose taps are in flight together
+#endif
+#ifndef SWEEP_MIN_BLOCKS
+#define SWEEP_MIN_BLOCKS 3  // __launch_bounds__'s blocks per SM (caps the registers at 80)
+#endif
+#ifndef SWEEP_STREAM_STORES
+#define SWEEP_STREAM_STORES 1  // evict-first stores of the volume and the warps
+#endif
+#ifndef SWEEP_SHARE_COORDS
+#define SWEEP_SHARE_COORDS 1  // the 4 lanes of a pixel share the coordinates (C = 32, V <= 5)
+#endif
 
-  const int64_t view_stride = static_cast<int64_t>(H) * W * C;
-  float s[kGroup], q[kGroup];
-  sweep::load_group(features + (static_cast<int64_t>(y) * W + x) * C + c0, s);
-#pragma unroll
-  for (int i = 0; i < kGroup; ++i) q[i] = __fmul_rn(s[i], s[i]);
-
-  const float dep = __ldg(depth + d);
-  const float inv_half_w = sweep::inv_half_extent(W);
-  const float inv_half_h = sweep::inv_half_extent(H);
-
-  for (int v = 1; v < V; ++v) {
-    float acc[kGroup];
-    sweep::warp_sample(features + v * view_stride + c0, homography + (v - 1) * 12, x, y, dep, inv_half_w,
-                       inv_half_h, H, W, C, acc);
-    if constexpr (kEmit) {
-      sweep::store_group(warps + ((v - 1) * static_cast<int64_t>(D) * H * W + pix) * C + c0, acc);
-    }
-#pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-      s[i] = __fadd_rn(s[i], acc[i]);
-      q[i] = __fadd_rn(q[i], __fmul_rn(acc[i], acc[i]));
-    }
+template <typename T>
+__device__ __forceinline__ void store_out(T* p, const float (&v)[kGroup]) {
+  if constexpr (SWEEP_STREAM_STORES) {
+    sweep::store_group_stream(p, v);
+  } else {
+    sweep::store_group(p, v);
   }
-
-  const float inv_v = 1.0f / static_cast<float>(V);
-  float var[kGroup];
-#pragma unroll
-  for (int i = 0; i < kGroup; ++i) {
-    const float mean = __fmul_rn(s[i], inv_v);
-    var[i] = __fsub_rn(__fmul_rn(q[i], inv_v), __fmul_rn(mean, mean));
-  }
-  sweep::store_group(out + pix * C + c0, var);
 }
 
-template <typename TIn, typename TOut>
-int launch(const void* features, const void* homography, const void* depth, void* out, void* warps,
-           int V, int D, int H, int W, int C, cudaStream_t stream) {
-  const int64_t total = static_cast<int64_t>(D) * H * W * (C / kGroup);
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+// kShare (C = 32, at most 4 source views): the 4 lanes of a pixel hold
+// channel groups 0-3, and lane g computes source view g's coordinate on each
+// plane and hands it to the other three by shuffle, so each lane keeps one
+// view's ray and does a quarter of the divides. Otherwise each lane computes
+// every view's coordinate from kMaxSrc rays.
+template <typename TIn, typename TOut, bool kEmit, int kMaxSrc, bool kShare>
+struct Sweep {
+  const TIn* features;  // [V, H, W, C]
+  const float* hm_s;    // [V-1, 12] in shared memory
+  const float* depth;   // [D]
+  TOut* out;            // [D, H, W, C]
+  TOut* warps;          // [V-1, D, H, W, C] when kEmit
+  int nsrc, D, H, W, C, c0;
+  int64_t pix;          // y * W + x
+  float inv_half_w, inv_half_h;
+  float ref[kGroup];
+  sweep::Ray ray[kShare ? 1 : kMaxSrc];
+
+  // kP planes from d on: all their samples of a view, then their sums
+  template <int kP>
+  __device__ __forceinline__ void planes(int d) {
+    const int64_t plane = static_cast<int64_t>(H) * W;
+    const int64_t view_stride = plane * C;
+    float s[kP][kGroup], q[kP][kGroup], dep[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      dep[p] = __ldg(depth + d + p);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        s[p][i] = ref[i];
+        q[p][i] = __fmul_rn(ref[i], ref[i]);
+      }
+    }
+    float own_ix[kP], own_iy[kP];  // kShare: this lane's view's coordinates
+    if constexpr (kShare) {
+      const int g = c0 / kGroup;
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        own_ix[p] = own_iy[p] = 0.0f;
+        if (g < nsrc) {
+          sweep::plane_coord(ray[0], hm_s + g * 12, dep[p], inv_half_w, inv_half_h, W, H, own_ix[p], own_iy[p]);
+        }
+      }
+    }
+    const unsigned quad = 0xFu << (threadIdx.x & 28);
+#pragma unroll
+    for (int v = 0; v < kMaxSrc; ++v) {
+      if (v >= nsrc) break;
+      const TIn* img = features + (v + 1) * view_stride + c0;
+      float acc[kP][kGroup];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        float ix, iy;
+        if constexpr (kShare) {
+          ix = __shfl_sync(quad, own_ix[p], v, 4);
+          iy = __shfl_sync(quad, own_iy[p], v, 4);
+        } else {
+          sweep::plane_coord(ray[v], hm_s + v * 12, dep[p], inv_half_w, inv_half_h, W, H, ix, iy);
+        }
+        sweep::sample_at(img, ix, iy, H, W, C, acc[p]);
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if constexpr (kEmit) {
+          store_out(warps + ((static_cast<int64_t>(v) * D + d + p) * plane + pix) * C + c0, acc[p]);
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          s[p][i] = __fadd_rn(s[p][i], acc[p][i]);
+          q[p][i] = __fadd_rn(q[p][i], __fmul_rn(acc[p][i], acc[p][i]));
+        }
+      }
+    }
+    const float inv_v = 1.0f / static_cast<float>(nsrc + 1);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      float var[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        const float mean = __fmul_rn(s[p][i], inv_v);
+        var[i] = __fsub_rn(__fmul_rn(q[p][i], inv_v), __fmul_rn(mean, mean));
+      }
+      store_out(out + ((d + p) * plane + pix) * C + c0, var);
+    }
+  }
+};
+
+// features [V, H, W, C] (view 0 = reference), homography [V-1, 12] (R
+// row-major, then t) of src_proj @ inv(ref_proj), depth [D] -> out
+// [D, H, W, C] and, when kEmit, warps [V-1, D, H, W, C]. Block (x, y): 256
+// (pixel, group) threads, planes [y * d_chunk, (y + 1) * d_chunk).
+template <typename TIn, typename TOut, bool kEmit, int kMaxSrc, bool kShare>
+__global__ void __launch_bounds__(kThreads, SWEEP_MIN_BLOCKS)
+sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict__ homography,
+                      const float* __restrict__ depth, TOut* __restrict__ out, TOut* __restrict__ warps, int V,
+                      int D, int H, int W, int C, int d_chunk) {
+  __shared__ float hm_s[kMaxSrc * 12];
+  const int nsrc = V - 1;
+  for (int i = threadIdx.x; i < nsrc * 12; i += kThreads) hm_s[i] = __ldg(homography + i);
+  __syncthreads();
+
+  const int groups = C / kGroup;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= static_cast<int64_t>(H) * W * groups) return;
+
+  Sweep<TIn, TOut, kEmit, kMaxSrc, kShare> k;
+  k.features = features;
+  k.hm_s = hm_s;
+  k.depth = depth;
+  k.out = out;
+  k.warps = warps;
+  k.nsrc = nsrc;
+  k.D = D;
+  k.H = H;
+  k.W = W;
+  k.C = C;
+  k.c0 = static_cast<int>(idx % groups) * kGroup;
+  k.pix = idx / groups;
+  const float xf = static_cast<float>(static_cast<int>(k.pix % W));
+  const float yf = static_cast<float>(static_cast<int>(k.pix / W));
+  k.inv_half_w = sweep::inv_half_extent(W);
+  k.inv_half_h = sweep::inv_half_extent(H);
+  sweep::load_group(features + k.pix * C + k.c0, k.ref);
+  if constexpr (kShare) {
+    const int g = k.c0 / kGroup;
+    if (g < nsrc) k.ray[0] = sweep::pixel_ray(hm_s + g * 12, xf, yf);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kMaxSrc; ++v) {
+      if (v < nsrc) k.ray[v] = sweep::pixel_ray(hm_s + v * 12, xf, yf);
+    }
+  }
+
+  const int d1 = min(D, (blockIdx.y + 1) * d_chunk);
+  int d = blockIdx.y * d_chunk;
+  for (; d + SWEEP_PLANES_PER_STEP <= d1; d += SWEEP_PLANES_PER_STEP) k.template planes<SWEEP_PLANES_PER_STEP>(d);
+  for (; d < d1; ++d) k.template planes<1>(d);
+}
+
+template <typename TIn, typename TOut, int kMaxSrc, bool kShare>
+int launch(const void* features, const void* homography, const void* depth, void* out, void* warps, int V,
+           int D, int H, int W, int C, int d_chunk, cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(H) * W * (C / kGroup);
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+                  static_cast<unsigned>((D + d_chunk - 1) / d_chunk));
   const TIn* f = static_cast<const TIn*>(features);
   const float* hm = static_cast<const float*>(homography);
   const float* dv = static_cast<const float*>(depth);
   TOut* o = static_cast<TOut*>(out);
   TOut* w = static_cast<TOut*>(warps);
   if (w != nullptr) {
-    sweep_variance_kernel<TIn, TOut, true><<<blocks, kThreads, 0, stream>>>(f, hm, dv, o, w, V, D, H, W, C);
+    sweep_variance_kernel<TIn, TOut, true, kMaxSrc, kShare>
+        <<<grid, kThreads, 0, stream>>>(f, hm, dv, o, w, V, D, H, W, C, d_chunk);
   } else {
-    sweep_variance_kernel<TIn, TOut, false><<<blocks, kThreads, 0, stream>>>(f, hm, dv, o, w, V, D, H, W, C);
+    sweep_variance_kernel<TIn, TOut, false, kMaxSrc, kShare>
+        <<<grid, kThreads, 0, stream>>>(f, hm, dv, o, w, V, D, H, W, C, d_chunk);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// share: the build whose lanes share the coordinates (C = 32, V <= 5);
+// otherwise the general build.
+template <typename TIn, typename TOut>
+int launch_views(const void* features, const void* homography, const void* depth, void* out, void* warps,
+                 int V, int D, int H, int W, int C, int d_chunk, int share, cudaStream_t stream) {
+  if (share) {
+    return launch<TIn, TOut, 4, SWEEP_SHARE_COORDS != 0>(features, homography, depth, out, warps, V, D, H, W, C,
+                                                          d_chunk, stream);
+  }
+  return launch<TIn, TOut, 15, false>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, stream);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers; the caller has
-// checked shapes, dtypes, contiguity, 16-byte alignment and C % 8 == 0.
-// in_bf16 / out_bf16 select bf16 (1) or f32 (0). warps is null, or a
-// [V-1, D, H, W, C] output in the output dtype that receives each source
-// view's samples. Returns the cudaError_t of the launch (0 on success).
+// checked shapes, dtypes, contiguity, 16-byte alignment, C % 8 == 0 and
+// V <= 16, and sets share only for C = 32 and V <= 5 (launch_geometry in
+// ops/kernels/sweep_variance.py). in_bf16 / out_bf16 select bf16 (1) or f32 (0). warps is null, or a [V-1, D, H, W, C] output in the output dtype
+// that receives each source view's samples. d_chunk: planes per block.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int sweep_variance_launch(const void* features, int in_bf16, const void* homography,
                                      const void* depth, void* out, int out_bf16, void* warps, int V,
-                                     int D, int H, int W, int C, void* stream) {
+                                     int D, int H, int W, int C, int d_chunk, int share, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
-    return out_bf16
-        ? launch<__nv_bfloat16, __nv_bfloat16>(features, homography, depth, out, warps, V, D, H, W, C, s)
-        : launch<__nv_bfloat16, float>(features, homography, depth, out, warps, V, D, H, W, C, s);
+    return out_bf16 ? launch_views<__nv_bfloat16, __nv_bfloat16>(features, homography, depth, out, warps, V, D, H,
+                                                                 W, C, d_chunk, share, s)
+                    : launch_views<__nv_bfloat16, float>(features, homography, depth, out, warps, V, D, H, W, C,
+                                                         d_chunk, share, s);
   }
-  return out_bf16 ? launch<float, __nv_bfloat16>(features, homography, depth, out, warps, V, D, H, W, C, s)
-                  : launch<float, float>(features, homography, depth, out, warps, V, D, H, W, C, s);
+  return out_bf16 ? launch_views<float, __nv_bfloat16>(features, homography, depth, out, warps, V, D, H, W, C,
+                                                       d_chunk, share, s)
+                  : launch_views<float, float>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, share,
+                                               s);
 }
 
 extern "C" const char* sweep_variance_error_string(int code) {

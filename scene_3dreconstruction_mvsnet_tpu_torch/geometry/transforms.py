@@ -21,8 +21,10 @@ def compose_projection_matrix(intrinsics: torch.Tensor, extrinsics: torch.Tensor
 
 def invert_4x4(mat: torch.Tensor) -> torch.Tensor:
     """General batched square inverse (projection matrices K@E are not
-    rigid); also takes the 3x3 intrinsics and rotations."""
-    return torch.linalg.inv(mat)
+    rigid); also takes the 3x3 intrinsics and rotations. ``inv_ex`` is
+    ``inv``'s kernel without its singularity check, which on a card would
+    wait for the device to finish all work queued before it."""
+    return torch.linalg.inv_ex(mat)[0]
 
 
 def pixel_grid(height: int, width: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -84,11 +86,12 @@ def depth_to_world_points(
     return world
 
 
-def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor):
+def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor, ref_inv: torch.Tensor | None = None):
     """P = src_proj @ inv(ref_proj) for [B, 4, 4] inputs -> (rot [B, 3, 3],
-    trans [B, 3]). The sweep kernel's wrapper takes its per-view homography
+    trans [B, 3]); ``ref_inv`` is ``invert_4x4(ref_proj)`` where the caller
+    has it already. The sweep kernel's wrapper takes its per-view homography
     from here too, so both paths start from the same f32 numbers."""
-    proj = torch.matmul(src_proj, invert_4x4(ref_proj))
+    proj = torch.matmul(src_proj, invert_4x4(ref_proj) if ref_inv is None else ref_inv)
     return proj[:, :3, :3], proj[:, :3, 3]
 
 

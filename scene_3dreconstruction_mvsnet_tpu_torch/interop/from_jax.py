@@ -1,10 +1,13 @@
 """Load the JAX package's variables into the port's modules.
 
-The conversion is the shared, numpy-only ``export_torch_state_dict``
-(``scene_3dreconstruction_mvsnet_tpu/interop/torch_import.py``), which emits
-the reference's state-dict keys with the ``module.`` prefix and flips the
-ConvTranspose kernels back to torch's layout. The port's module names equal
-those keys, so the result loads with ``strict=True``.
+``export_torch_state_dict`` converts the JAX MVSNet's variables (numpy
+leaves) to the reference's state dict: the reference's keys with the
+``module.`` prefix, each kernel moved to torch's layout and the
+ConvTranspose kernels flipped back. It is the port's own copy of
+``scene_3dreconstruction_mvsnet_tpu/interop/torch_import.py``'s, numpy only,
+so the port loads nothing of the JAX package (tests/test_torch_interop.py
+holds the two equal byte for byte). The port's module names equal those
+keys, so the result loads with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,73 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from scene_3dreconstruction_mvsnet_tpu.interop import export_torch_state_dict
+_FEATURE_BN_BLOCKS = [f"conv{i}" for i in range(7)]
+_COSTREG_CONV_BLOCKS = [f"conv{i}" for i in range(7)]
+_COSTREG_DECONV_BLOCKS = ["conv7", "conv9", "conv11"]
+_REFINE_BLOCKS = ["conv1", "conv2", "conv3", "res"]
+
+
+def export_torch_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Flax variables ``{"params", "batch_stats"}`` -> the reference's
+    torch-layout state dict with the ``module.`` prefix (conv2d kernels
+    [kh, kw, I, O] -> [O, I, kh, kw], conv3d [kd, kh, kw, I, O] ->
+    [O, I, kd, kh, kw], the ConvTranspose correlation kernels flipped back to
+    [I, O, kd, kh, kw])."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    out: dict[str, np.ndarray] = {}
+
+    def put_bn(prefix, p, s):
+        out[f"{prefix}.weight"] = np.asarray(p["scale"])
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+        out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
+        out[f"{prefix}.running_var"] = np.asarray(s["var"])
+
+    def put_conv_bn(prefix, p, s, ndim):
+        k = np.asarray(p["conv"]["kernel"])
+        out[f"{prefix}.conv.weight"] = (
+            np.transpose(k, (3, 2, 0, 1)) if ndim == 2 else np.transpose(k, (4, 3, 0, 1, 2))
+        )
+        put_bn(f"{prefix}.bn", p["bn"], s["bn"])
+
+    for blk in _FEATURE_BN_BLOCKS:
+        put_conv_bn(f"module.feature.{blk}", params["feature"][blk], stats["feature"][blk], 2)
+    fk = np.asarray(params["feature"]["feature"]["kernel"])
+    out["module.feature.feature.weight"] = np.transpose(fk, (3, 2, 0, 1))
+    out["module.feature.feature.bias"] = np.asarray(params["feature"]["feature"]["bias"])
+
+    for blk in _COSTREG_CONV_BLOCKS:
+        put_conv_bn(
+            f"module.cost_regularization.{blk}",
+            params["cost_regularization"][blk],
+            stats["cost_regularization"][blk],
+            3,
+        )
+    for blk in _COSTREG_DECONV_BLOCKS:
+        k = np.asarray(params["cost_regularization"][blk]["kernel"])
+        out[f"module.cost_regularization.{blk}.0.weight"] = np.transpose(
+            k[::-1, ::-1, ::-1], (3, 4, 0, 1, 2)
+        ).copy()
+        put_bn(
+            f"module.cost_regularization.{blk}.1",
+            params["cost_regularization"][blk]["bn"],
+            stats["cost_regularization"][blk]["bn"],
+        )
+    pk = np.asarray(params["cost_regularization"]["prob"]["kernel"])
+    out["module.cost_regularization.prob.weight"] = np.transpose(pk, (4, 3, 0, 1, 2))
+    out["module.cost_regularization.prob.bias"] = np.asarray(
+        params["cost_regularization"]["prob"]["bias"]
+    )
+
+    if "refine_network" in params:
+        for blk in _REFINE_BLOCKS:
+            put_conv_bn(
+                f"module.refine_network.{blk}",
+                params["refine_network"][blk],
+                stats["refine_network"][blk],
+                2,
+            )
+    return out
 
 
 def jax_variables_to_state_dict(variables: Mapping[str, Any], model: nn.Module) -> dict[str, torch.Tensor]:

@@ -6,11 +6,11 @@ sweep_variance.py::sweep_variance_pallas``. The kernel
 volume in one launch per sample, with the warped per-view volumes kept in
 registers; with ``emit_warps`` (the training forward) the same launch also
 stores each source view's warped volume. Its bound on the H100 is the
-output write and the bilinear gather through L2 (the source features fit in
-the 50 MB L2); one thread per
-(plane, pixel, 8 channels) keeps both loads and stores contiguous across a
-warp. The TPU kernel's window planner, validity flag with XLA fallback,
-column-pair packing and row-skip existed because the TPU's gather only
+output write and the bilinear gather through L1/L2 (the source features fit
+in the 50 MB L2); one thread per (pixel, 8 channels) walks a chunk of depth
+planes (``launch_geometry``), so loads and stores stay contiguous across a
+warp and consecutive planes' taps hit L1. The TPU kernel's window planner,
+validity flag with XLA fallback, column-pair packing and row-skip existed because the TPU's gather only
 reaches within 128 lanes; a GPU thread loads from any address, so none of
 them is ported.
 
@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from ...geometry.transforms import relative_projection
+from ...geometry.transforms import invert_4x4, relative_projection
 from ..plane_sweep import cost_volume_variance
 from . import check_cuda_tensor, load_cuda_library
 
@@ -34,6 +35,11 @@ EMIT_LAUNCHES = 0  # of those, the launches that also emitted the warped volumes
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+THREADS = 256  # (pixel, group of 8 channels) threads per block
+MAX_CHUNK, MIN_CHUNK = 16, 4  # depth planes a thread walks
+MAX_VIEWS = 16  # the general build holds 15 source views' rays in registers
+SM_COUNT = 132  # H100 SXM
+
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
@@ -41,7 +47,7 @@ def _library() -> ctypes.CDLL:
     lib.sweep_variance_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sweep_variance_launch.restype = ctypes.c_int
     lib.sweep_variance_error_string.argtypes = [ctypes.c_int]
@@ -49,14 +55,34 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def launch_geometry(V: int, D: int, H: int, W: int, C: int, sm_count: int = SM_COUNT) -> dict:
+    """K1's launch for one sample: ``grid`` (blocks of ``threads`` (pixel,
+    channel group) threads, times chunks of ``d_chunk`` planes), whether the
+    4 lanes of a pixel ``share_coords`` (C = 32 and V <= 5, every path of the
+    model), and the static shared memory (the homography terms). The chunk is
+    MAX_CHUNK planes, halved down to MIN_CHUNK while the grid would give the
+    card's SMs fewer than 8 blocks each."""
+    if not 1 <= V <= MAX_VIEWS:
+        raise ValueError(f"the sweep kernel takes 1 to {MAX_VIEWS} views, got {V}")
+    pixel_blocks = math.ceil(H * W * (C // 8) / THREADS)
+    chunk = MAX_CHUNK
+    while chunk > MIN_CHUNK and pixel_blocks * math.ceil(D / chunk) < 8 * sm_count:
+        chunk //= 2
+    chunk = min(chunk, D)
+    share = C == 32 and V <= 5
+    return {"threads": THREADS, "d_chunk": chunk, "grid": (pixel_blocks, math.ceil(D / chunk)),
+            "share_coords": share, "smem_bytes": 12 * 4 * (4 if share else MAX_VIEWS - 1)}
+
+
 def homography_terms(proj_matrices: torch.Tensor) -> torch.Tensor:
     """[V, 4, 4] K@E (view 0 = reference) -> [V-1, 12] f32: each source
     view's R (row-major) and t of src_proj @ inv(ref_proj), computed per view
-    exactly as the plain path computes them."""
+    exactly as the plain path computes them (the reference's inverse once)."""
     ref = proj_matrices[0:1]
+    ref_inv = invert_4x4(ref)
     rows = []
     for v in range(1, proj_matrices.shape[0]):
-        rot, trans = relative_projection(proj_matrices[v : v + 1], ref)
+        rot, trans = relative_projection(proj_matrices[v : v + 1], ref, ref_inv)
         rows.append(torch.cat([rot.reshape(9), trans.reshape(3)]))
     return torch.stack(rows).float().contiguous()
 
@@ -88,6 +114,7 @@ def sweep_variance_cuda(
         raise ValueError(f"proj_matrices must be f32 [{V}, 4, 4], got {proj_matrices.dtype} {tuple(proj_matrices.shape)}")
     check_cuda_tensor(depth_values, "depth_values", (torch.float32,), 1, device, align=4)
     D = depth_values.shape[0]
+    geom = launch_geometry(V, D, H, W, C, torch.cuda.get_device_properties(device).multi_processor_count)
     homography = homography_terms(proj_matrices.to(device))
     out = torch.empty((D, H, W, C), dtype=out_dtype, device=device)
     warps = torch.empty((V - 1, D, H, W, C), dtype=out_dtype, device=device) if emit_warps else None
@@ -97,7 +124,8 @@ def sweep_variance_cuda(
         err = lib.sweep_variance_launch(
             features.data_ptr(), int(features.dtype == torch.bfloat16), homography.data_ptr(),
             depth_values.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            None if warps is None else warps.data_ptr(), V, D, H, W, C, stream,
+            None if warps is None else warps.data_ptr(), V, D, H, W, C, geom["d_chunk"], int(geom["share_coords"]),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep_variance kernel launch failed: {lib.sweep_variance_error_string(err).decode()}")

@@ -76,3 +76,39 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert ("torch.cuda.is_available() is False" if where == "checkout" else "checkout") in proc.stdout + proc.stderr
+
+
+def test_bound_helpers_count_the_work(smoke):
+    """The smoke's bound_ms inputs on a small rig: ``sweep_grid`` is the grid
+    the plain warp samples with (grid_sample on it reproduces the warp
+    exactly), its tap count is a direct count of the bilinear taps inside the
+    image, and ``bound`` takes the larger of the bytes' and the operations'
+    times."""
+    import torch
+    import torch.nn.functional as F
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import warp_src_feature
+
+    projs, dv = smoke.headline_rig(12)
+    h, w, d = 9, 12, 5
+    proj = torch.from_numpy(projs)
+    proj[:, :2] /= 24.0  # the ring's cameras at a 9 x 12 feature map
+    depth = torch.from_numpy(dv[::40].copy())
+    src = torch.rand((h, w, 8), generator=torch.Generator().manual_seed(0))
+    grid, taps = smoke.sweep_grid(proj[3], proj[0], depth, h, w)
+    want = warp_src_feature(src[None], proj[None, 3], proj[None, 0], depth[None])[0]
+    got = F.grid_sample(src.permute(2, 0, 1)[None], grid, align_corners=False)[0].reshape(8, d, h, w)
+    torch.testing.assert_close(got.permute(1, 2, 3, 0), want, rtol=0, atol=0)
+    ix = ((grid[..., 0].double() + 1) * w - 1) / 2
+    iy = ((grid[..., 1].double() + 1) * h - 1) / 2
+    count = 0
+    for x, y in zip(ix.flatten().tolist(), iy.flatten().tolist()):
+        x0, y0 = np.floor(x), np.floor(y)
+        count += sum(0 <= x0 + dx < w and 0 <= y0 + dy < h for dx in (0, 1) for dy in (0, 1))
+    assert 0 < taps == count < 4 * d * h * w  # some footprints leave the image
+    flops = smoke.sweep_flops(proj[:3], depth, h, w, 8)
+    taps2 = smoke.sweep_grid(proj[1], proj[0], depth, h, w)[1] + smoke.sweep_grid(proj[2], proj[0], depth, h, w)[1]
+    assert flops == 8 * (2 * taps2 + (3 * 2 + 5) * d * h * w)
+    b = smoke.bound(3.35e9, 67e9, "f32")
+    assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 1.0) < 1e-12
+    assert smoke.bound(3.35e9, 67e12, "f32")["bound_by"] == "operations"

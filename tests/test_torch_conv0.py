@@ -96,3 +96,56 @@ def test_fused_conv0_leaves_training_unchanged():
         torch.testing.assert_close(outs[1][k], outs[0][k], rtol=0, atol=0)
     for (name, a), (_, b) in zip(models[0].state_dict().items(), models[1].state_dict().items()):
         torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("B,D,H,W", [(1, 192, 216, 288), (1, 3, 9, 37), (2, 1, 8, 33), (1, 2, 10, 40),
+                                     (2, 13, 16, 64)])
+def test_conv0_launch_geometry(B, D, H, W):
+    """K4's launch covers every output voxel and plane with no empty chunk,
+    fits two blocks' shared memory in an SM, and at the headline gives the
+    132 SMs several blocks each."""
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import conv0_fused as k4
+
+    g = k4.launch_geometry(B, D, H, W)
+    assert g["tiles_y"] * k4.TILE_H >= H > (g["tiles_y"] - 1) * k4.TILE_H
+    assert g["tiles_x"] * k4.TILE_W >= W > (g["tiles_x"] - 1) * k4.TILE_W
+    assert g["grid"][0] == B * g["tiles_y"] * g["tiles_x"]
+    assert g["d_chunk"] * g["grid"][1] >= D > (g["grid"][1] - 1) * g["d_chunk"]
+    assert g["d_chunk"] >= min(D, k4.MIN_CHUNK)
+    assert g["threads"] == 256 and g["smem_bytes"] == 83200  # the ring, the weights, the transpose
+    assert k4.BLOCKS_PER_SM * (g["smem_bytes"] + 1024) <= 228 * 1024  # 1 KB of each block is the system's
+    if (B, D, H, W) == (1, 192, 216, 288):
+        assert g["grid"] == (243, 9) and g["d_chunk"] == 22
+        assert g["grid"][0] * g["grid"][1] >= 8 * 132
+
+
+def test_conv0_weight_fragments_emulate_the_conv():
+    """The implicit GEMM the kernel runs, emulated on the CPU with the
+    wrapper's weight fragments read back as the mma reads them (lane l holds
+    B[k, n] for n = l // 4 and k = 2 (l % 4) + (0, 1, 8, 9)): for each tap
+    (kd, kh, kw) and half of the input channels, the volume shifted by the tap
+    times that B. Equal to the plain conv of the same bf16 values (f32 sums in
+    another order)."""
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import conv0_fused as k4
+
+    rng = np.random.RandomState(6)
+    B, D, H, W = 1, 3, 5, 7
+    x = torch.from_numpy(rng.rand(B, D, H, W, 32).astype(np.float32)).to(torch.bfloat16).float()
+    weight = torch.from_numpy((rng.rand(8, 32, 3, 3, 3) - 0.5).astype(np.float32))
+    frags = k4.mma_weight_fragments(weight).float()  # [27, 2, 32, 4]
+    b_mat = torch.zeros(27, 2, 16, 8)
+    for lane in range(32):
+        n, t = lane // 4, 2 * (lane % 4)
+        for j, k in enumerate((t, t + 1, t + 8, t + 9)):
+            b_mat[:, :, k, n] = frags[:, :, lane, j]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    got = torch.zeros(B, D, H, W, 8, dtype=torch.float64)
+    for tap in range(27):
+        kd, kh, kw = tap // 9, (tap // 3) % 3, tap % 3
+        for h in range(2):
+            a = xp[:, kd:kd + D, kh:kh + H, kw:kw + W, 16 * h:16 * h + 16]
+            got += (a.double() @ b_mat[tap, h].double())
+    with torch.no_grad():
+        want = torch.nn.functional.conv3d(x.permute(0, 4, 1, 2, 3).double(),
+                                          weight.to(torch.bfloat16).double(), padding=1)
+    torch.testing.assert_close(got.permute(0, 4, 1, 2, 3), want, rtol=0, atol=1e-12)

@@ -43,6 +43,26 @@ def _rig(H, W, C, D, V, rot_deg):
     return fea, np.stack(projs), np.linspace(425.0, 905.0, D, dtype=np.float32)
 
 
+def _batch(B, H, W, C, D, V, rot_deg):
+    """``_rig`` as a batch of B samples on the device layout: sample b's
+    features are 1 - those of sample b - 1 (so a sample mix-up shows), the
+    same cameras and planes."""
+    fea, projs, dv = _rig(H, W, C, D, V, rot_deg)
+    feats = np.stack([fea if b % 2 == 0 else 1.0 - fea for b in range(B)])
+    return feats, np.stack([projs] * B), np.stack([dv] * B)
+
+
+# rigs: no turn, a 2 degree turn per view, and a 25 degree turn whose
+# footprints leave the source images; D = 7 is not a multiple of K1's plane
+# chunk (4 at these sizes)
+RIGS = [(1, 0.0), (1, 2.0), (2, 2.0), (1, 25.0)]
+# K1's builds: the model's (C = 32, at most 4 source views: the lanes of a
+# pixel share the coordinates) and the general one (the rays of up to 15
+# source views in registers): (views added to the test's own, channels), so
+# the variance tests take 4 or 7 views and the emit tests 3 or 6
+K1_BUILDS = [(0, 32), (3, 16)]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -57,16 +77,18 @@ def cuda():
     (torch.bfloat16, torch.float32, 2e-3),
     (torch.bfloat16, torch.bfloat16, 1e-2),  # + the output's own bf16 rounding
 ])
-@pytest.mark.parametrize("rot_deg", [0.0, 2.0])
-def test_sweep_variance_kernel_matches_plain(cuda, rot_deg, in_dtype, out_dtype, tol):
-    fea, projs, dv = _rig(24, 72, 32, 7, 4, rot_deg=rot_deg)
-    feats = torch.from_numpy(fea).to(cuda, in_dtype)[None]
-    proj = torch.from_numpy(projs).to(cuda)[None]
-    depth = torch.from_numpy(dv).to(cuda)[None]
+@pytest.mark.parametrize("B,rot_deg", RIGS)
+@pytest.mark.parametrize("extra_views,C", K1_BUILDS)
+def test_sweep_variance_kernel_matches_plain(cuda, extra_views, C, B, rot_deg, in_dtype, out_dtype, tol):
+    V = 4 + extra_views
+    fea, projs, dv = _batch(B, 24, 72, C, 7, V, rot_deg=rot_deg)
+    feats = torch.from_numpy(fea).to(cuda, in_dtype)
+    proj = torch.from_numpy(projs).to(cuda)
+    depth = torch.from_numpy(dv).to(cuda)
     before = k1.LAUNCHES
     out = k1.sweep_variance(feats, proj, depth, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert k1.LAUNCHES == before + 1 and out.dtype == out_dtype and out.shape == (1, 7, 24, 72, 32)
+    assert k1.LAUNCHES == before + B and out.dtype == out_dtype and out.shape == (B, 7, 24, 72, C)
     ref = cost_volume_variance(feats, proj, depth, out_dtype=torch.float32)
     scale = ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= tol * scale
@@ -102,28 +124,34 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rot_deg", [0.0, 2.0])
-def test_sweep_variance_emit_matches_plain(cuda, rot_deg, dtype):
+@pytest.mark.parametrize("B,rot_deg", RIGS)
+@pytest.mark.parametrize("extra_views,C", K1_BUILDS)
+def test_sweep_variance_emit_matches_plain(cuda, extra_views, C, B, rot_deg, dtype):
     """K1's emit mode: the variance is bit-identical to the launch without
     emit; each emitted view equals the plain warp exactly in f32 and within
     one bf16 ulp in bf16."""
-    fea, projs, dv = _rig(24, 72, 32, 7, 3, rot_deg=rot_deg)
-    feats = torch.from_numpy(fea).to(cuda, dtype)[None]
-    proj = torch.from_numpy(projs).to(cuda)[None]
-    depth = torch.from_numpy(dv).to(cuda)[None]
+    V = 3 + extra_views
+    fea, projs, dv = _batch(B, 24, 72, C, 7, V, rot_deg=rot_deg)
+    feats = torch.from_numpy(fea).to(cuda, dtype)
+    proj = torch.from_numpy(projs).to(cuda)
+    depth = torch.from_numpy(dv).to(cuda)
     before, before_emit = k1.LAUNCHES, k1.EMIT_LAUNCHES
     var, warps = k1.sweep_variance(feats, proj, depth, emit_warps=True)
     plain_var = k1.sweep_variance(feats, proj, depth)
     torch.cuda.synchronize()
-    assert (k1.LAUNCHES, k1.EMIT_LAUNCHES) == (before + 2, before_emit + 1)
-    assert warps.shape == (1, 2, 7, 24, 72, 32) and warps.dtype == dtype
+    assert (k1.LAUNCHES, k1.EMIT_LAUNCHES) == (before + 2 * B, before_emit + B)
+    assert warps.shape == (B, V - 1, 7, 24, 72, C) and warps.dtype == dtype
     torch.testing.assert_close(var, plain_var, rtol=0, atol=0)
-    for v in range(2):
-        ref = warp_src_feature(feats[:, v + 1], proj[:, v + 1], proj[:, 0], depth).float()
-        if dtype == torch.float32:
-            assert (warps[:, v].float() - ref).abs().max().item() == 0.0
-        else:
-            assert bf16_ulps(warps[:, v], ref) <= 1.0
+    # one sample at a time, as K1 takes them: the plain warp of a batch computes
+    # its homographies batched, which rounds differently in the last bit
+    for b in range(B):
+        for v in range(V - 1):
+            ref = warp_src_feature(feats[b:b + 1, v + 1], proj[b:b + 1, v + 1], proj[b:b + 1, 0],
+                                   depth[b:b + 1]).float()
+            if dtype == torch.float32:
+                assert (warps[b:b + 1, v].float() - ref).abs().max().item() == 0.0
+            else:
+                assert bf16_ulps(warps[b:b + 1, v], ref) <= 1.0
 
 
 @pytest.mark.parametrize("rot_deg", [0.0, 2.0])
@@ -160,13 +188,15 @@ def test_paired_cost_volume_grad_matches_plain(cuda, dtype, tol):
     assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
 
 
-@pytest.mark.parametrize("shape", [(1, 5, 8, 32), (2, 6, 7, 19)])
+@pytest.mark.parametrize("shape", [(1, 5, 8, 32), (2, 6, 7, 19), (1, 3, 9, 37), (2, 1, 8, 33), (1, 2, 10, 40),
+                                   (2, 13, 16, 64)])
 def test_conv0_fused_kernel_matches_plain(cuda, shape):
     """K4 against its plain version (f32 conv of the same bf16-rounded
     inputs, TF32 off): the same exact products summed in another order, so at
     most one bf16 ulp apart. Near ReLU's kink a value may round to 0 on one
     side, so the ulp is taken at no less than 1e-3 x max|plain| (the f32 sums'
-    order noise is ~1e-6 of it)."""
+    order noise is ~1e-6 of it). The shapes cut the 8 x 32 output tile and
+    the plane chunks raggedly (D = 1, 2 and 13 = 3 x 4 + 1 planes)."""
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import conv0_fused as k4
 
     B, D, H, W = shape
@@ -185,7 +215,7 @@ def test_conv0_fused_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rot_deg", [0.0, 2.0])
+@pytest.mark.parametrize("rot_deg", [0.0, 2.0, 25.0])
 def test_plane_sweep_warp_kernel_matches_plain(cuda, rot_deg, dtype):
     """K5 against the plain warp: equal in f32, within one bf16 ulp (0 is
     expected: the kernel samples as K1-emit does) in bf16."""

@@ -1,8 +1,7 @@
 """The port imports, serves, trains and runs both CLIs with JAX, flax and the
-JAX package itself unavailable, as on the machine with the card. Only
-``interop.from_jax``, the bridge that loads the JAX package's variables for
-the tests, reaches into the JAX package, and then only into its numpy-only
-``interop`` modules."""
+JAX package itself unavailable, as on the machine with the card. No module
+of the port reaches into the JAX package, ``interop`` included: the weight
+bridge carries its own numpy-only conversion."""
 
 import os
 import subprocess
@@ -25,10 +24,9 @@ torch.set_num_threads(1)
 import scene_3dreconstruction_mvsnet_tpu_torch as pkg
 
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-bridge = "scene_3dreconstruction_mvsnet_tpu_torch.interop"
 for name in names:
-    if name != bridge and not name.startswith(bridge + "."):
-        importlib.import_module(name)
+    importlib.import_module(name)
+assert "scene_3dreconstruction_mvsnet_tpu_torch.interop.from_jax" in sys.modules
 
 from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
 from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
@@ -86,13 +84,6 @@ assert {"scene_3dreconstruction_mvsnet_tpu_torch.train_cli", "scene_3dreconstruc
         "scene_3dreconstruction_mvsnet_tpu_torch.eval.scene_kit", "scene_3dreconstruction_mvsnet_tpu_torch.utils.debug_dump",
         "scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.conv0_fused",
         "scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.plane_sweep_warp"} <= set(sys.modules)
-
-# the bridge: with the JAX package importable again, only its interop modules load
-del sys.modules["scene_3dreconstruction_mvsnet_tpu"]
-importlib.import_module(bridge)
-jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "scene_3dreconstruction_mvsnet_tpu")
-assert jax_pkg == ["scene_3dreconstruction_mvsnet_tpu", "scene_3dreconstruction_mvsnet_tpu.interop",
-                   "scene_3dreconstruction_mvsnet_tpu.interop.torch_import"], jax_pkg
 print("imported", len(names), "modules")
 """
 
