@@ -602,10 +602,16 @@ def phase_eval(repo: Path) -> dict[str, tuple[int, int, str]]:
         got = rep[tag]["launches"]
         if got["conv0_fused"] != k4_n or got["plane_sweep_warp"] != k5_n or got["sweep_variance"] < (n if tag != "serve" else 2 * n):
             raise AssertionError(f"{tag}: K4 must launch {k4_n} times and K5 {k5_n}, K1 once per view: {got}")
-    for tag, what in (("fused", "--pallas_conv0"), ("module", "module conv0")):
+    # the debug run is a later --pallas_conv0 stage A of the same process (its
+    # first batch, which carries the dumps, is outside the steady state)
+    for tag, what in (("fused", "--pallas_conv0"), ("module", "module conv0"),
+                      ("debug", "--pallas_conv0, the process's second run with it")):
         a = rep[tag]["out"]["stage_a"]
+        span = statistics.median(a["device_ms"][1:])
         log("eval", f"stage A s/view ({what}): {a['avg_gen_time']:.4f} (steady {a['steady_gen_time']:.4f}) over "
-                    f"{a['n_views']} views; phases {', '.join(f'{k} {v:.2f} s' for k, v in a['phases'].items())}")
+                    f"{a['n_views']} views; forward on the device {span:.1f} ms (median after the first), launched in "
+                    f"{1e3 * a['phases']['launch'] / a['n_views']:.1f} ms per view; "
+                    f"phases {', '.join(f'{k} {v:.2f} s' for k, v in a['phases'].items())}")
     b = rep["fused"]["out"]["stage_b"][0]
     log("eval", f"stage B wall: {b['wall_s']:.3f} s for {n} reference views (file reads {b['load_s']:.3f} s, "
                 f"device filter + back-projection {b['filter_s']:.3f} s, masks/colours/PLY rows "

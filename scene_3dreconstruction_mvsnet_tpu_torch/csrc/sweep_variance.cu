@@ -17,9 +17,9 @@
 // 49 f32 operations per output (4 views x (4 tap FMAs + 3 for the moments),
 // then the variance), 18 GFLOP, 0.27 ms at 67 TFLOP/s. The gather is not in
 // that count: 4 views x 4 taps x 16 B = 256 B through L1/L2 for every 16 B
-// written, from features that fit in the 50 MB L2. Measured on an H100
-// (scripts/torch_k1_probes.py), the store alone takes 0.24 ms and the
-// coordinates, taps and sums without it take nearly all the rest: the
+// written, from features that fit in the 50 MB L2. Measured on an H100 with
+// throwaway probes (PERF.md, section 6), the store alone takes 0.24 ms and
+// the coordinates, taps and sums without it take nearly all the rest: the
 // per-output instructions and the tap loads bound the kernel, not memory.
 // Emit adds one more write of the output's size per source view (0.25 GB per
 // view at the training recipe's 192x128x160x32 in bf16).
@@ -27,13 +27,15 @@
 // Design: one thread per (ref pixel, group of 8 channels) walks a chunk of
 // depth planes (blockIdx.y; the chunk comes from the wrapper's launch
 // geometry), so the work that depends on the pixel alone is done once per
-// chunk: the reference group is loaded once and R (x, y, 1) is kept in
-// registers, with the homography terms in shared memory; per plane only z,
-// the two divides and the taps remain. On the model's paths (C = 32, at most
-// 4 source views) the 4 lanes of a pixel split even that: lane g computes
-// source view g's coordinate and hands it to the other three by shuffle. A
-// group is 16 bytes in bf16 and the 4 threads of a pixel read one contiguous
-// 64-byte pixel, so a warp's taps and its stores are contiguous; walking
+// chunk: the reference group is loaded once, the homography terms sit in
+// shared memory, and on the model's paths (C = 32, at most 4 source views)
+// lane g of a pixel's 4 lanes keeps source view g's R (x, y, 1) in registers,
+// computes only z, the two divides and the normalisation per plane, and hands
+// the coordinate to the other three by shuffle. Any other shape takes the
+// general build, which recomputes each view's R (x, y, 1) on every plane and
+// so takes any number of views. A group is 16 bytes in bf16 and the 4
+// threads of a pixel read one contiguous 64-byte pixel, so a warp's taps and
+// its stores are contiguous; walking
 // planes moves each view's footprint by well under a pixel per plane, so
 // consecutive planes' taps hit lines already in L1. The volume and the warps
 // are stored with the evict-first hint. What the probes measured decided the
@@ -53,36 +55,14 @@ namespace {
 using sweep::kGroup;
 
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 3;  // blocks per SM: caps the registers at 80
+constexpr int kShareViews = 4;  // source views whose coordinates a pixel's 4 lanes share
 
-// Settings that scripts/torch_k1_probes.py varies (-D) to measure them.
-#ifndef SWEEP_PLANES_PER_STEP
-#define SWEEP_PLANES_PER_STEP 1  // planes whose taps are in flight together
-#endif
-#ifndef SWEEP_MIN_BLOCKS
-#define SWEEP_MIN_BLOCKS 3  // __launch_bounds__'s blocks per SM (caps the registers at 80)
-#endif
-#ifndef SWEEP_STREAM_STORES
-#define SWEEP_STREAM_STORES 1  // evict-first stores of the volume and the warps
-#endif
-#ifndef SWEEP_SHARE_COORDS
-#define SWEEP_SHARE_COORDS 1  // the 4 lanes of a pixel share the coordinates (C = 32, V <= 5)
-#endif
-
-template <typename T>
-__device__ __forceinline__ void store_out(T* p, const float (&v)[kGroup]) {
-  if constexpr (SWEEP_STREAM_STORES) {
-    sweep::store_group_stream(p, v);
-  } else {
-    sweep::store_group(p, v);
-  }
-}
-
-// kShare (C = 32, at most 4 source views): the 4 lanes of a pixel hold
-// channel groups 0-3, and lane g computes source view g's coordinate on each
-// plane and hands it to the other three by shuffle, so each lane keeps one
-// view's ray and does a quarter of the divides. Otherwise each lane computes
-// every view's coordinate from kMaxSrc rays.
-template <typename TIn, typename TOut, bool kEmit, int kMaxSrc, bool kShare>
+// kShare (C = 32, at most kShareViews source views): the 4 lanes of a pixel
+// hold channel groups 0-3, and lane g keeps source view g's ray and computes
+// its coordinate on each plane for all four. Otherwise each lane computes
+// every view's ray and coordinate on every plane.
+template <typename TIn, typename TOut, bool kEmit, bool kShare>
 struct Sweep {
   const TIn* features;  // [V, H, W, C]
   const float* hm_s;    // [V-1, 12] in shared memory
@@ -91,89 +71,70 @@ struct Sweep {
   TOut* warps;          // [V-1, D, H, W, C] when kEmit
   int nsrc, D, H, W, C, c0;
   int64_t pix;          // y * W + x
-  float inv_half_w, inv_half_h;
+  float xf, yf, inv_half_w, inv_half_h;
   float ref[kGroup];
-  sweep::Ray ray[kShare ? 1 : kMaxSrc];
+  sweep::Ray ray;       // kShare: this lane's view's ray
 
-  // kP planes from d on: all their samples of a view, then their sums
-  template <int kP>
-  __device__ __forceinline__ void planes(int d) {
+  __device__ __forceinline__ void plane(int d) {
     const int64_t plane = static_cast<int64_t>(H) * W;
     const int64_t view_stride = plane * C;
-    float s[kP][kGroup], q[kP][kGroup], dep[kP];
+    const float dep = __ldg(depth + d);
+    float s[kGroup], q[kGroup];
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      dep[p] = __ldg(depth + d + p);
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        s[p][i] = ref[i];
-        q[p][i] = __fmul_rn(ref[i], ref[i]);
-      }
+    for (int i = 0; i < kGroup; ++i) {
+      s[i] = ref[i];
+      q[i] = __fmul_rn(ref[i], ref[i]);
     }
-    float own_ix[kP], own_iy[kP];  // kShare: this lane's view's coordinates
+    float own_ix = 0.0f, own_iy = 0.0f;  // kShare: this lane's view's coordinate
     if constexpr (kShare) {
       const int g = c0 / kGroup;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        own_ix[p] = own_iy[p] = 0.0f;
-        if (g < nsrc) {
-          sweep::plane_coord(ray[0], hm_s + g * 12, dep[p], inv_half_w, inv_half_h, W, H, own_ix[p], own_iy[p]);
-        }
-      }
+      if (g < nsrc) sweep::plane_coord(ray, hm_s + g * 12, dep, inv_half_w, inv_half_h, W, H, own_ix, own_iy);
     }
     const unsigned quad = 0xFu << (threadIdx.x & 28);
+    const int views = kShare ? kShareViews : nsrc;
 #pragma unroll
-    for (int v = 0; v < kMaxSrc; ++v) {
+    for (int v = 0; v < views; ++v) {
       if (v >= nsrc) break;
-      const TIn* img = features + (v + 1) * view_stride + c0;
-      float acc[kP][kGroup];
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        float ix, iy;
-        if constexpr (kShare) {
-          ix = __shfl_sync(quad, own_ix[p], v, 4);
-          iy = __shfl_sync(quad, own_iy[p], v, 4);
-        } else {
-          sweep::plane_coord(ray[v], hm_s + v * 12, dep[p], inv_half_w, inv_half_h, W, H, ix, iy);
-        }
-        sweep::sample_at(img, ix, iy, H, W, C, acc[p]);
+      float ix, iy;
+      if constexpr (kShare) {
+        ix = __shfl_sync(quad, own_ix, v, 4);
+        iy = __shfl_sync(quad, own_iy, v, 4);
+      } else {
+        sweep::sweep_sample_coord(hm_s + v * 12, xf, yf, dep, inv_half_w, inv_half_h, W, H, ix, iy);
+      }
+      float acc[kGroup];
+      sweep::sample_at(features + (v + 1) * view_stride + c0, ix, iy, H, W, C, acc);
+      if constexpr (kEmit) {
+        sweep::store_group_stream(warps + ((static_cast<int64_t>(v) * D + d) * plane + pix) * C + c0, acc);
       }
 #pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        if constexpr (kEmit) {
-          store_out(warps + ((static_cast<int64_t>(v) * D + d + p) * plane + pix) * C + c0, acc[p]);
-        }
-#pragma unroll
-        for (int i = 0; i < kGroup; ++i) {
-          s[p][i] = __fadd_rn(s[p][i], acc[p][i]);
-          q[p][i] = __fadd_rn(q[p][i], __fmul_rn(acc[p][i], acc[p][i]));
-        }
+      for (int i = 0; i < kGroup; ++i) {
+        s[i] = __fadd_rn(s[i], acc[i]);
+        q[i] = __fadd_rn(q[i], __fmul_rn(acc[i], acc[i]));
       }
     }
     const float inv_v = 1.0f / static_cast<float>(nsrc + 1);
+    float var[kGroup];
 #pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      float var[kGroup];
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        const float mean = __fmul_rn(s[p][i], inv_v);
-        var[i] = __fsub_rn(__fmul_rn(q[p][i], inv_v), __fmul_rn(mean, mean));
-      }
-      store_out(out + ((d + p) * plane + pix) * C + c0, var);
+    for (int i = 0; i < kGroup; ++i) {
+      const float mean = __fmul_rn(s[i], inv_v);
+      var[i] = __fsub_rn(__fmul_rn(q[i], inv_v), __fmul_rn(mean, mean));
     }
+    sweep::store_group_stream(out + (d * plane + pix) * C + c0, var);
   }
 };
 
 // features [V, H, W, C] (view 0 = reference), homography [V-1, 12] (R
 // row-major, then t) of src_proj @ inv(ref_proj), depth [D] -> out
 // [D, H, W, C] and, when kEmit, warps [V-1, D, H, W, C]. Block (x, y): 256
-// (pixel, group) threads, planes [y * d_chunk, (y + 1) * d_chunk).
-template <typename TIn, typename TOut, bool kEmit, int kMaxSrc, bool kShare>
-__global__ void __launch_bounds__(kThreads, SWEEP_MIN_BLOCKS)
+// (pixel, group) threads, planes [y * d_chunk, (y + 1) * d_chunk); dynamic
+// shared memory: the (V-1) x 12 homography terms.
+template <typename TIn, typename TOut, bool kEmit, bool kShare>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict__ homography,
                       const float* __restrict__ depth, TOut* __restrict__ out, TOut* __restrict__ warps, int V,
                       int D, int H, int W, int C, int d_chunk) {
-  __shared__ float hm_s[kMaxSrc * 12];
+  extern __shared__ float hm_s[];
   const int nsrc = V - 1;
   for (int i = threadIdx.x; i < nsrc * 12; i += kThreads) hm_s[i] = __ldg(homography + i);
   __syncthreads();
@@ -182,7 +143,7 @@ sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict_
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= static_cast<int64_t>(H) * W * groups) return;
 
-  Sweep<TIn, TOut, kEmit, kMaxSrc, kShare> k;
+  Sweep<TIn, TOut, kEmit, kShare> k;
   k.features = features;
   k.hm_s = hm_s;
   k.depth = depth;
@@ -195,44 +156,38 @@ sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict_
   k.C = C;
   k.c0 = static_cast<int>(idx % groups) * kGroup;
   k.pix = idx / groups;
-  const float xf = static_cast<float>(static_cast<int>(k.pix % W));
-  const float yf = static_cast<float>(static_cast<int>(k.pix / W));
+  k.xf = static_cast<float>(static_cast<int>(k.pix % W));
+  k.yf = static_cast<float>(static_cast<int>(k.pix / W));
   k.inv_half_w = sweep::inv_half_extent(W);
   k.inv_half_h = sweep::inv_half_extent(H);
   sweep::load_group(features + k.pix * C + k.c0, k.ref);
   if constexpr (kShare) {
     const int g = k.c0 / kGroup;
-    if (g < nsrc) k.ray[0] = sweep::pixel_ray(hm_s + g * 12, xf, yf);
-  } else {
-#pragma unroll
-    for (int v = 0; v < kMaxSrc; ++v) {
-      if (v < nsrc) k.ray[v] = sweep::pixel_ray(hm_s + v * 12, xf, yf);
-    }
+    if (g < nsrc) k.ray = sweep::pixel_ray(hm_s + g * 12, k.xf, k.yf);
   }
 
   const int d1 = min(D, (blockIdx.y + 1) * d_chunk);
-  int d = blockIdx.y * d_chunk;
-  for (; d + SWEEP_PLANES_PER_STEP <= d1; d += SWEEP_PLANES_PER_STEP) k.template planes<SWEEP_PLANES_PER_STEP>(d);
-  for (; d < d1; ++d) k.template planes<1>(d);
+  for (int d = blockIdx.y * d_chunk; d < d1; ++d) k.plane(d);
 }
 
-template <typename TIn, typename TOut, int kMaxSrc, bool kShare>
+template <typename TIn, typename TOut, bool kShare>
 int launch(const void* features, const void* homography, const void* depth, void* out, void* warps, int V,
            int D, int H, int W, int C, int d_chunk, cudaStream_t stream) {
   const int64_t threads = static_cast<int64_t>(H) * W * (C / kGroup);
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
                   static_cast<unsigned>((D + d_chunk - 1) / d_chunk));
+  const size_t smem = static_cast<size_t>(V - 1) * 12 * sizeof(float);
   const TIn* f = static_cast<const TIn*>(features);
   const float* hm = static_cast<const float*>(homography);
   const float* dv = static_cast<const float*>(depth);
   TOut* o = static_cast<TOut*>(out);
   TOut* w = static_cast<TOut*>(warps);
   if (w != nullptr) {
-    sweep_variance_kernel<TIn, TOut, true, kMaxSrc, kShare>
-        <<<grid, kThreads, 0, stream>>>(f, hm, dv, o, w, V, D, H, W, C, d_chunk);
+    sweep_variance_kernel<TIn, TOut, true, kShare><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D, H, W, C,
+                                                                                      d_chunk);
   } else {
-    sweep_variance_kernel<TIn, TOut, false, kMaxSrc, kShare>
-        <<<grid, kThreads, 0, stream>>>(f, hm, dv, o, w, V, D, H, W, C, d_chunk);
+    sweep_variance_kernel<TIn, TOut, false, kShare><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D, H, W,
+                                                                                       C, d_chunk);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -243,20 +198,20 @@ template <typename TIn, typename TOut>
 int launch_views(const void* features, const void* homography, const void* depth, void* out, void* warps,
                  int V, int D, int H, int W, int C, int d_chunk, int share, cudaStream_t stream) {
   if (share) {
-    return launch<TIn, TOut, 4, SWEEP_SHARE_COORDS != 0>(features, homography, depth, out, warps, V, D, H, W, C,
-                                                          d_chunk, stream);
+    return launch<TIn, TOut, true>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, stream);
   }
-  return launch<TIn, TOut, 15, false>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, stream);
+  return launch<TIn, TOut, false>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, stream);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers; the caller has
-// checked shapes, dtypes, contiguity, 16-byte alignment, C % 8 == 0 and
-// V <= 16, and sets share only for C = 32 and V <= 5 (launch_geometry in
-// ops/kernels/sweep_variance.py). in_bf16 / out_bf16 select bf16 (1) or f32 (0). warps is null, or a [V-1, D, H, W, C] output in the output dtype
-// that receives each source view's samples. d_chunk: planes per block.
-// Returns the cudaError_t of the launch (0 on success).
+// checked shapes, dtypes, contiguity, 16-byte alignment and C % 8 == 0, and
+// sets share only for C = 32 and V <= 5 (launch_geometry in
+// ops/kernels/sweep_variance.py). in_bf16 / out_bf16 select bf16 (1) or f32
+// (0). warps is null, or a [V-1, D, H, W, C] output in the output dtype that
+// receives each source view's samples. d_chunk: planes per block. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int sweep_variance_launch(const void* features, int in_bf16, const void* homography,
                                      const void* depth, void* out, int out_bf16, void* warps, int V,
                                      int D, int H, int W, int C, int d_chunk, int share, void* stream) {

@@ -92,7 +92,11 @@ def save_depth(
     device: torch.device | str = "cpu",
 ) -> dict:
     """Depth and confidence for every reference view, with ``model`` (an
-    MVSNet with its weights) on ``device``. Returns timing stats.
+    MVSNet with its weights) on ``device``. Returns timing stats: the
+    phases' host seconds (the forward split into ``launch``, the host
+    queueing it, and ``device_wait``, the host waiting for its results) and,
+    on a card, each batch's ``device_ms`` from CUDA events around the forward
+    (from its first kernel's start to its last one's end, idle gaps included).
 
     ``batch_size`` > 1 batches reference views; the trailing partial batch
     is padded by repeating its last view (the padding is not written).
@@ -133,6 +137,7 @@ def save_depth(
     vertex_colors: list[np.ndarray] = []
 
     gen_times: list[float] = []  # per view: the time between successive batches' results / views
+    device_ms: list[float] = []  # per batch, on a card
     first_batch_views = 0  # views of batch 0, whose time carries the first launches
     writer = ThreadPoolExecutor(max_workers=2)
     pending = []
@@ -219,15 +224,23 @@ def save_depth(
         if n_real < batch_size:
             pad = batch_size - n_real
             imgs_b, projs_b, dv_b = (np.concatenate([a, np.repeat(a[-1:], pad, 0)]) for a in (imgs_b, projs_b, dv_b))
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if device.type == "cuda" else None
         t0 = time.time()
+        if events:
+            events[0].record()
         outputs = infer(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (imgs_b, projs_b, dv_b)))
+        if events:
+            events[1].record()
+        mark("launch")
         depths = outputs["depth"].cpu().numpy()  # waits for the device
         confidences = outputs["photometric_confidence"].cpu().numpy()
         now = time.time()
         dt = now - (last_done if last_done is not None else t0)
         last_done = now
         gen_times.extend([dt / n_real] * n_real)
-        mark("forward")
+        mark("device_wait")
+        if events:
+            device_ms.append(events[0].elapsed_time(events[1]))
         emit_batch(sample, n_real, depths, confidences, dt)
         mark("emit")
     for f in pending:
@@ -259,6 +272,7 @@ def save_depth(
         "avg_gen_time": avg,
         "steady_gen_time": steady,
         "n_views": len(gen_times),
+        "device_ms": device_ms,
         "outdir_acq": outdir_acq,
         "phases": phases,
     }

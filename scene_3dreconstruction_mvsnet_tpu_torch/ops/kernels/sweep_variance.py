@@ -37,7 +37,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 THREADS = 256  # (pixel, group of 8 channels) threads per block
 MAX_CHUNK, MIN_CHUNK = 16, 4  # depth planes a thread walks
-MAX_VIEWS = 16  # the general build holds 15 source views' rays in registers
 SM_COUNT = 132  # H100 SXM
 
 
@@ -57,21 +56,20 @@ def _library() -> ctypes.CDLL:
 
 def launch_geometry(V: int, D: int, H: int, W: int, C: int, sm_count: int = SM_COUNT) -> dict:
     """K1's launch for one sample: ``grid`` (blocks of ``threads`` (pixel,
-    channel group) threads, times chunks of ``d_chunk`` planes), whether the
-    4 lanes of a pixel ``share_coords`` (C = 32 and V <= 5, every path of the
-    model), and the static shared memory (the homography terms). The chunk is
+    channel group) threads, times chunks of ``d_chunk`` planes) and whether
+    the 4 lanes of a pixel ``share_coords`` (C = 32 and V <= 5, every path of
+    the model; any other V and C take the general build). The chunk is
     MAX_CHUNK planes, halved down to MIN_CHUNK while the grid would give the
     card's SMs fewer than 8 blocks each."""
-    if not 1 <= V <= MAX_VIEWS:
-        raise ValueError(f"the sweep kernel takes 1 to {MAX_VIEWS} views, got {V}")
+    if V < 1:
+        raise ValueError(f"the sweep kernel takes at least 1 view, got {V}")
     pixel_blocks = math.ceil(H * W * (C // 8) / THREADS)
     chunk = MAX_CHUNK
     while chunk > MIN_CHUNK and pixel_blocks * math.ceil(D / chunk) < 8 * sm_count:
         chunk //= 2
     chunk = min(chunk, D)
-    share = C == 32 and V <= 5
     return {"threads": THREADS, "d_chunk": chunk, "grid": (pixel_blocks, math.ceil(D / chunk)),
-            "share_coords": share, "smem_bytes": 12 * 4 * (4 if share else MAX_VIEWS - 1)}
+            "share_coords": C == 32 and V <= 5}
 
 
 def homography_terms(proj_matrices: torch.Tensor) -> torch.Tensor:

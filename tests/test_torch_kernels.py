@@ -57,10 +57,10 @@ def _batch(B, H, W, C, D, V, rot_deg):
 # chunk (4 at these sizes)
 RIGS = [(1, 0.0), (1, 2.0), (2, 2.0), (1, 25.0)]
 # K1's builds: the model's (C = 32, at most 4 source views: the lanes of a
-# pixel share the coordinates) and the general one (the rays of up to 15
-# source views in registers): (views added to the test's own, channels), so
-# the variance tests take 4 or 7 views and the emit tests 3 or 6
-K1_BUILDS = [(0, 32), (3, 16)]
+# pixel share the coordinates) and the general one (any C and view count,
+# rays recomputed per plane): (views added to the test's own, channels), so
+# the variance tests take 4, 7 or 18 views and the emit tests 3, 6 or 17
+K1_BUILDS = [(0, 32), (3, 16), (14, 32)]
 
 
 @pytest.fixture

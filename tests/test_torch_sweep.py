@@ -97,21 +97,20 @@ def test_homography_terms_are_the_plain_paths():
 
 
 @pytest.mark.parametrize("V,D,H,W,C", [(5, 192, 216, 288, 32), (3, 192, 128, 160, 32), (4, 7, 24, 72, 32),
-                                       (2, 9, 5, 13, 16), (9, 3, 4, 4, 8), (16, 1, 3, 3, 32)])
+                                       (2, 9, 5, 13, 16), (9, 3, 4, 4, 8), (20, 1, 3, 3, 32)])
 def test_sweep_launch_geometry(V, D, H, W, C):
     """K1's launch covers every (pixel, channel group) and every plane with
     no empty chunk, shares the coordinates within a pixel on the model's
-    paths (C = 32, V <= 5), and walks 16 planes per thread at the headline
-    and the recipe."""
+    paths (C = 32, V <= 5) and takes the general build for any other view
+    count, and walks 16 planes per thread at the headline and the recipe."""
     g = k1.launch_geometry(V, D, H, W, C)
     assert g["grid"][0] * g["threads"] >= H * W * (C // 8) > (g["grid"][0] - 1) * g["threads"]
     assert g["d_chunk"] * g["grid"][1] >= D > (g["grid"][1] - 1) * g["d_chunk"]
     assert min(D, k1.MIN_CHUNK) <= g["d_chunk"] <= k1.MAX_CHUNK
     assert g["share_coords"] == (C == 32 and V <= 5)
-    assert g["smem_bytes"] == 48 * (4 if g["share_coords"] else 15) <= 48 * 1024
     if (H, W) in ((216, 288), (128, 160)):
         assert g["d_chunk"] == 16 and g["grid"][0] * g["grid"][1] >= 8 * 132
     if (V, D) == (4, 7):
-        assert g["d_chunk"] == 4  # a short last chunk, and an odd one for the two-plane steps
-    with pytest.raises(ValueError, match="views"):
-        k1.launch_geometry(17, D, H, W, C)
+        assert g["d_chunk"] == 4  # a short last chunk
+    with pytest.raises(ValueError, match="view"):
+        k1.launch_geometry(0, D, H, W, C)
