@@ -6,15 +6,16 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints lines tagged with its name; any failure raises and the
 exit code is not 0):
   1. device  the card's name, and name + power limit from nvidia-smi;
-  2. build   the sweep-variance, warp-backward, fused-conv0 and single-view
-             warp CUDA kernels (nvcc, sm_90a, one compiler process each,
-             started together) and the softmax-regression Triton kernel,
-             from the checkout's sources;
+  2. build   the sweep-variance, paired backward-terms, warp-backward,
+             fused-conv0 and single-view warp CUDA kernels (nvcc, sm_90a, one
+             compiler process each, started together) and the
+             softmax-regression Triton kernel, from the checkout's sources;
   3. kernels each kernel against its plain PyTorch version, with times from
              CUDA events: K1, K2, K4 (and the module conv0 it replaces) and
              K5 at the inference headline's shapes (V=5, D=192, 216x288x32
-             features), K1's emit mode and K3 at the training recipe's (V=3,
-             D=192, 128x160x32);
+             features), K1's emit mode, K3-terms and K3 at the training
+             recipe's (V=3, D=192, 128x160x32; K3 also twice for bit
+             equality);
   4. slice   MVSNet inference at the headline configuration (864x1152 images,
              5 views of a 49-camera inward ring, 192 planes, random weights
              from a seeded generator) serving requests through
@@ -25,8 +26,9 @@ exit code is not 0):
   5. train   MVSNet training at the train_DTU recipe (batch 4, 3 views,
              512x640, D=192, interval 2.65, Adam lr 1e-3) through the port's
              train step on an analytic plane scene: 6 bf16 steps on one
-             repeated batch (the loss must fall) and 2 f32 steps, K1-emit and
-             K3 launched on every step, the paired sweep's feature gradient
+             repeated batch (the loss must fall) and 2 f32 steps, K1-emit
+             once per sample and K3-terms and K3 once per step, the paired
+             sweep's feature gradient
              held against autograd through the plain sweep, and the step's
              seconds, peak memory, stage split and device idle share;
   6. eval    the two-stage eval CLI (``eval_cli``) on a synthetic 16-view ring
@@ -79,6 +81,7 @@ T_LR, T_LREPOCHS = 1e-3, "2,3,4,5,6,7,8,9,10,11,12,13,14,15:1.2"
 BF16_STEPS, F32_STEPS = 6, 2
 K3_ATOL = 1e-4  # x max|plain|: the bound the JAX package holds its TPU kernel to against autodiff
 PAIRED_TOL = {"f32": 2e-4, "bf16": 2e-2}  # x max|plain grad|, as tests/test_paired_sweep.py
+PAIRED_GRAD_TOL = 1e-4  # x max|plain dref|: K3-terms sums dref over the planes in another order
 K4_ULP_FLOOR = 1e-3  # x max|plain|: K4's ulps are counted at no smaller a value (ReLU's kink)
 
 # the least time the card could take for a kernel's work (its bound_ms): the
@@ -91,6 +94,8 @@ NO_LIBRARY = {  # kernels that no single PyTorch call computes
     "sweep_variance": "no PyTorch call warps several views and takes their variance in one pass",
     "softmax_regression": "no PyTorch call takes the softmax, the depth expectation and the 4-window confidence "
                           "together",
+    "paired_grad": "no PyTorch call computes the variance's VJP terms (2/V) g (w_v - mean) and their sum over the "
+                   "planes",
 }
 
 # the eval phase: a 16-view ring acquisition at the headline resolution
@@ -226,7 +231,7 @@ def phase_build():
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import build_cuda_library
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.softmax_regression import softmax_regression_cuda
 
-    names = ("sweep_variance", "warp_grad", "conv0_fused", "plane_sweep_warp")
+    names = ("sweep_variance", "paired_grad", "warp_grad", "conv0_fused", "plane_sweep_warp")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process each, side by side
         builds = {n: pool.submit(build_cuda_library, n) for n in names}
         t0 = time.perf_counter()
@@ -726,8 +731,11 @@ class PlaneScene:
 
 
 def phase_train_kernels(gen) -> list[dict]:
-    """K1's emit mode and K3 against their plain versions at the recipe's
-    shapes for one sample (V=3, D=192, 128x160x32)."""
+    """K1's emit mode (one sample), K3-terms (the recipe's batch of 4, its
+    volume cotangent in the conv's NCDHW layout, as the train step hands it
+    over) and K3 (the step's 8 (sample, source view) pairs in one launch)
+    against their plain versions at the recipe's shapes (V=3,
+    D=192, 128x160x32)."""
     import numpy as np
     import torch
 
@@ -735,7 +743,10 @@ def phase_train_kernels(gen) -> list[dict]:
         cost_volume_variance, warp_src_feature, warp_src_feature_grad,
     )
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
-    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.sweep_variance import sweep_variance_cuda
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.paired_grad import paired_grad_cuda, paired_grad_plain
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.sweep_variance import (
+        homography_terms, sweep_variance_cuda,
+    )
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.warp_grad import warp_grad_cuda
 
     dev = torch.device("cuda")
@@ -789,40 +800,98 @@ def phase_train_kernels(gen) -> list[dict]:
         })
         del feats32
 
-        # K3 on one source view's f32 cotangent of mixed sign
-        g = torch.randn((1, TD, TH // 4, TW // 4, 32), generator=gen, device=dev)
-        out = warp_grad_cuda(g[0], proj[0, 1], proj[0, 0], dv[0])
-        ref = warp_src_feature_grad(g, proj[:, 1], proj[:, 0], dv)[0]
+        # K3-terms on the recipe's batch: a bf16 volume cotangent of mixed sign in
+        # the NCDHW layout the conv backward gives, the emitted warps, the features
+        h_, w_ = hc[:2]
+        feats = torch.rand((TB, TV, h_, w_, 32), generator=gen, device=dev).to(torch.bfloat16)
+        warps = torch.rand((TB, TV - 1, TD, h_, w_, 32), generator=gen, device=dev).to(torch.bfloat16)
+        g_vol = torch.randn((TB, 32, TD, h_, w_), generator=gen, device=dev).to(torch.bfloat16)
+        g_vol = g_vol.permute(0, 2, 3, 4, 1)
+        t, dref = paired_grad_cuda(g_vol, warps, feats)
+        t_plain, dref_plain = paired_grad_plain(g_vol, warps, feats)
         torch.cuda.synchronize()
+        t_equal = torch.equal(t, t_plain)
+        t_err = (t - t_plain).abs().max().item()
+        d_scale = dref_plain.abs().max().item()
+        d_err = (dref - dref_plain).abs().max().item()
+        del t_plain, dref_plain
+        k_ms, p_ms, _ = timed_pair(lambda: paired_grad_cuda(g_vol, warps, feats),
+                                   lambda: paired_grad_plain(g_vol, warps, feats), iters=10, plain_iters=3)
+        per_value = TB * TD * hc.numel()  # (sample, plane, pixel, channel)
+        terms_bytes = 2 * (g_vol.numel() + warps.numel() + feats[:, 0].numel()) + 4 * (t.numel() + dref.numel())
+        # per value: g32; the view sum and the mean; dref's three; each view's two
+        terms_bound = bound(terms_bytes, per_value * (1 + TV + 3 + 2 * (TV - 1)), "f32")
+        log("kernels", f"paired_grad (recipe, batch {TB}): t {'equal to' if t_equal else 'NOT equal to'} the plain "
+                       f"version's (max|err| {t_err:.3e}); dref max|err| {d_err:.3e} vs "
+                       f"{PAIRED_GRAD_TOL * d_scale:.3e}; "
+                       f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {terms_bound['bound_ms']:.3f} ms "
+                       f"({terms_bound['bound_by']}); library call: none ({NO_LIBRARY['paired_grad']})")
+        if not t_equal or not d_err <= PAIRED_GRAD_TOL * d_scale:
+            raise AssertionError("paired_grad kernel disagrees with its plain version")
+        rows.append({
+            "name": "paired_grad", "route": "cuda",
+            "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/paired_grad.cu",
+            "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/paired_sweep.py:106",
+            "max_abs_err": t_err, "tol": 0.0, "ms": k_ms, "plain_ms": p_ms, **terms_bound, "library_ms": None,
+            "library_none": NO_LIBRARY["paired_grad"], "dref_max_abs_err": d_err,
+            "dref_tol": PAIRED_GRAD_TOL * d_scale,
+        })
+        del feats, warps, g_vol, dref
+
+        # K3 on the step's (sample, source view) pairs in one launch, as the train step
+        # launches it (the batch shares sample 0's rig here)
+        hm = homography_terms(proj[0])  # [TV - 1, 12], as the paired sweep takes them
+        pairs = t.flatten(0, 1)
+        n_pairs = pairs.shape[0]
+        src_views = [1 + n % (TV - 1) for n in range(n_pairs)]
+        hm_step = hm[[v - 1 for v in src_views]]
+        dv_step = dv.expand(n_pairs, -1).contiguous()
+        src, ref_proj = proj[0, src_views], proj[0, [0] * n_pairs]
+        out = warp_grad_cuda(pairs, hm_step, dv_step)
+        again = warp_grad_cuda(pairs, hm_step, dv_step)
+        ref = warp_src_feature_grad(pairs, src, ref_proj, dv_step)
+        torch.cuda.synchronize()
+        same_bits = torch.equal(out, again)
         scale = ref.abs().max().item()
         err = (out - ref).abs().max().item()
-        del out, ref
-        # the library yardstick: grid_sample's input gradient on the precomputed grid
-        h_, w_ = hc[:2]
-        grid, taps = sweep_grid(proj[0, 1], proj[0, 0], dv[0], h_, w_)
-        g_nchw = g[0].permute(3, 0, 1, 2).reshape(1, 32, -1, w_)  # a view of g
-        zeros = torch.zeros((1, 32, h_, w_), device=dev)
+        del out, again, ref
+        # the library yardstick: grid_sample's input gradient on the precomputed grids
+        grids = {v: sweep_grid(proj[0, v], proj[0, 0], dv[0], h_, w_) for v in range(1, TV)}
+        grid = torch.cat([grids[v][0] for v in src_views])
+        taps = sum(grids[v][1] for v in src_views)
+        g_nchw = pairs.permute(0, 4, 1, 2, 3).reshape(n_pairs, 32, -1, w_)  # a view of the cotangents
+        zeros = torch.zeros((n_pairs, 32, h_, w_), device=dev)
         k_ms, p_ms, lib_ms = timed_pair(
-            lambda: warp_grad_cuda(g[0], proj[0, 1], proj[0, 0], dv[0]),
-            lambda: warp_src_feature_grad(g, proj[:, 1], proj[:, 0], dv),
-            iters=10, plain_iters=5,
+            lambda: warp_grad_cuda(pairs, hm_step, dv_step),
+            lambda: warp_src_feature_grad(pairs, src, ref_proj, dv_step),
+            iters=10, plain_iters=2,
             library_fn=lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, zeros, grid, 0, 0, False,
                                                                         [True, False]),
         )
-        k3_bound = bound(g[0].numel() * 4 + hc.numel() * 4, 2 * 32 * taps, "f32")
-        log("kernels", f"warp_grad (recipe, one view): max|err| {err:.3e} vs atol {K3_ATOL * scale:.3e} "
-                       f"(max|plain| {scale:.4f}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
-                       f"(grid_sampler_2d_backward, input gradient) {lib_ms:.3f} ms, bound {k3_bound['bound_ms']:.3f} "
-                       f"ms ({k3_bound['bound_by']})")
-        if not err <= K3_ATOL * scale:
-            raise AssertionError("warp_grad kernel disagrees with its plain version")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the wrapper's host time per call: the geometry's torch ops and the launch
+        for _ in range(10):
+            warp_grad_cuda(pairs, hm_step, dv_step)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
+        k3_bound = bound(pairs.numel() * 4 + n_pairs * hc.numel() * 4, 2 * 32 * taps, "f32")
+        log("kernels", f"warp_grad (recipe, the step's {n_pairs} pairs in one launch): max|err| {err:.3e} vs atol "
+                       f"{K3_ATOL * scale:.3e} (max|plain| {scale:.4f}); two launches "
+                       f"{'bit-identical' if same_bits else 'DIFFER'}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                       f"library (grid_sampler_2d_backward, input gradient) {lib_ms:.3f} ms, bound "
+                       f"{k3_bound['bound_ms']:.3f} ms ({k3_bound['bound_by']}); the wrapper's host time {host_ms:.3f} "
+                       "ms per call")
+        if not err <= K3_ATOL * scale or not same_bits:
+            raise AssertionError("warp_grad kernel disagrees with its plain version or with itself")
         rows.append({
             "name": "warp_grad", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/warp_grad.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/warp_grad.py:517",
             "max_abs_err": err, "tol": K3_ATOL * scale, "ms": k_ms, "plain_ms": p_ms, **k3_bound,
             "library_ms": lib_ms, "library_call": "torch.ops.aten.grid_sampler_2d_backward(g, src, grid, ...)[0]",
+            "pairs": n_pairs, "bit_identical_relaunch": same_bits, "wrapper_host_ms": host_ms,
         })
+        del t, pairs
     return rows
 
 
@@ -901,7 +970,8 @@ class StageTimer:
                  ("sweep fwd (K1-emit)", "sweep_fwd", "costreg_fwd"), ("CostRegNet fwd", "costreg_fwd", "head_fwd"),
                  ("regression+loss fwd/bwd", "head_fwd", "costreg_bwd"),
                  ("CostRegNet bwd", "costreg_bwd", "sweep_bwd_end"),
-                 ("sweep bwd (K3)", "sweep_bwd_end", "feature_bwd"), ("FeatureNet bwd", "feature_bwd", "optimizer"),
+                 ("sweep bwd (terms + K3)", "sweep_bwd_end", "feature_bwd"),
+                 ("FeatureNet bwd", "feature_bwd", "optimizer"),
                  ("optimizer", "optimizer", "after"), ("metrics", "after", "end")]
         return {name: self.events[a].elapsed_time(self.events[b]) for name, a, b in order}
 
@@ -933,8 +1003,9 @@ def device_busy(step, batch) -> tuple[float, float] | None:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    top = sorted(prof.key_averages(), key=lambda a: -getattr(a, "self_device_time_total", 0.0))[:6]
-    for a in top:
+    ranked = sorted(prof.key_averages(), key=lambda a: -getattr(a, "self_device_time_total", 0.0))
+    ours = [a for a in ranked[10:] if "paired_grad" in a.key or "warp_grad" in a.key]
+    for a in ranked[:10] + ours:
         log("train", f"profiler: {getattr(a, 'self_device_time_total', 0.0) / 1e3:.3f} ms device  {a.key[:90]}")
     return wall, busy / 1e3
 
@@ -944,6 +1015,7 @@ def phase_train(gen) -> dict[str, tuple[int, int, str]]:
 
     from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
     from scene_3dreconstruction_mvsnet_tpu_torch.ops import cost_volume_variance
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import paired_grad as k3t
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import sweep_variance as k1
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import warp_grad as k3
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.paired_sweep import paired_cost_volume
@@ -968,7 +1040,7 @@ def phase_train(gen) -> dict[str, tuple[int, int, str]]:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.LAUNCHES = k1.EMIT_LAUNCHES = k3.LAUNCHES = 0
+    k1.LAUNCHES = k1.EMIT_LAUNCHES = k3t.LAUNCHES = k3.LAUNCHES = 0
     losses, seconds = {"bf16": [], "f32": []}, {"bf16": [], "f32": []}
     for tag, step, n in (("bf16", step16, BF16_STEPS), ("f32", step32, F32_STEPS)):
         for _ in range(n):
@@ -976,7 +1048,7 @@ def phase_train(gen) -> dict[str, tuple[int, int, str]]:
             aux = step(batch)
             losses[tag].append(float(aux["loss"]))  # waits for the step
             seconds[tag].append(time.perf_counter() - t0)
-    launches = {"sweep_variance_emit": k1.EMIT_LAUNCHES, "warp_grad": k3.LAUNCHES}
+    launches = {"sweep_variance_emit": k1.EMIT_LAUNCHES, "paired_grad": k3t.LAUNCHES, "warp_grad": k3.LAUNCHES}
     if k1.LAUNCHES != k1.EMIT_LAUNCHES:
         raise AssertionError(f"a training step ran K1 without emitting the warps: {k1.LAUNCHES} launches")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -989,8 +1061,8 @@ def phase_train(gen) -> dict[str, tuple[int, int, str]]:
         raise AssertionError(f"a training loss is not finite: {losses}")
     if not losses["bf16"][-1] < losses["bf16"][0]:
         raise AssertionError(f"the loss on the repeated batch did not fall over the bf16 steps: {losses['bf16']}")
-    if launches["sweep_variance_emit"] < steps * TB or launches["warp_grad"] < steps * TB * (TV - 1):
-        raise AssertionError(f"K1-emit or K3 was not launched on every step: {launches}")
+    if launches != {"sweep_variance_emit": steps * TB, "paired_grad": steps, "warp_grad": steps}:
+        raise AssertionError(f"a train step must launch K1-emit once per sample and K3-terms and K3 once: {launches}")
     launches = {k: (n, steps, "train step") for k, n in launches.items()}
     median = {tag: statistics.median(s[1:]) if len(s) > 1 else s[0] for tag, s in seconds.items()}
     log("train", f"median seconds per step after the first: bf16 {median['bf16']:.4f}, f32 {median['f32']:.4f}; "
@@ -1003,7 +1075,7 @@ def phase_train(gen) -> dict[str, tuple[int, int, str]]:
         want = feature_grad(m, one, lambda f, p, d, dt: cost_volume_variance(f, p, d, out_dtype=dt)).float()
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        log("train", f"{tag} feature gradient, paired (K1-emit + K3) vs plain autograd: max|err| {err:.3e} "
+        log("train", f"{tag} feature gradient, paired (K1-emit, K3-terms + K3) vs plain autograd: max|err| {err:.3e} "
                      f"vs {PAIRED_TOL[tag] * scale:.3e} (max|plain| {scale:.4e})")
         if not err <= PAIRED_TOL[tag] * scale:
             raise AssertionError(f"{tag}: the paired sweep's feature gradient disagrees with plain autograd")
@@ -1155,7 +1227,7 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(gen) + phase_train_kernels(gen) + phase_eval_kernels(gen)
     launches = phase_slice(gen)  # K1 and K2 on the inference path
-    launches.update(phase_train(gen))  # K1-emit and K3 on the training path
+    launches.update(phase_train(gen))  # K1-emit, K3-terms and K3 on the training path
     launches.update(phase_eval(repo))  # K4 and K5 on the eval CLI's path
     for row in rows:
         n, units, unit = launches[row["name"]]

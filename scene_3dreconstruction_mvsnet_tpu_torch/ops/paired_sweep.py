@@ -9,12 +9,17 @@ make_paired_cost_volume``:
             warped volume; the warps, the features and the geometry are
             saved for the backward.
   backward: the variance's VJP with respect to view v's warped values is
-            (2/V) * g * (w_v - mean), an elementwise volume; its transpose
-            through the warp runs the warp-backward kernel (K3) once per
-            sample and source view. The reference view's gradient is the
-            direct reduction sum_d (2/V) * g * (ref - mean). ``mean`` is
-            built from the emitted warps, rounded to the output dtype, as
-            the JAX package builds it.
+            (2/V) * g * (w_v - mean), an elementwise volume, and the
+            reference view's gradient is the direct reduction
+            sum_d (2/V) * g * (ref - mean); ``mean`` is built from the
+            emitted warps, rounded to the output dtype, as the JAX package
+            builds it. On the card one launch of the terms kernel
+            (K3-terms) computes both for the batch, then one launch of the
+            warp-backward kernel (K3) takes every source view's transpose;
+            the two write straight into the feature gradient, in the
+            features' dtype, and no plain elementwise op runs. Neither
+            kernel uses atomics, so the gradient is the same bit for bit from
+            run to run.
 
 Gradients flow to the feature values only: the sweep coordinates are
 constants, so the projections and depth values get none. The TPU version's
@@ -22,13 +27,15 @@ plan validity output is not ported: it exists because the TPU kernels have
 static window envelopes, and a GPU thread reads and writes any address.
 
 On the CPU both directions take the kernels' plain versions (the wrappers
-dispatch on the device), so the backward formula is tested there.
+dispatch on the device), one sample at a time, so the backward formula is
+tested there.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .kernels.paired_grad import paired_grad
 from .kernels.sweep_variance import sweep_variance
 from .kernels.warp_grad import warp_grad
 
@@ -52,18 +59,18 @@ class PairedCostVolume(torch.autograd.Function):
     def backward(ctx, g_vol):
         warps, features, proj, depth = ctx.saved_tensors
         B, V = features.shape[:2]
-        coeff = 2.0 / V
-        dfeat = torch.empty(features.shape, dtype=torch.float32, device=features.device)
-        for b in range(B):  # one sample at a time bounds the f32 temporaries
-            ref = features[b, 0].float()
-            wf = warps[b].float()  # [V-1, D, H, W, C]
-            g32 = g_vol[b].float() * coeff
-            mean = (ref[None] + wf.sum(0)) * (1.0 / V)
-            dfeat[b, 0] = (g32 * (ref[None] - mean)).sum(0)
-            for v in range(V - 1):
-                t_v = g32 * (wf[v] - mean)
-                dfeat[b, v + 1] = warp_grad(t_v[None], proj[b : b + 1, v + 1], proj[b : b + 1, 0], depth[b : b + 1])[0]
-        return dfeat.to(features.dtype), None, None, None, None
+        dfeat = torch.empty(features.shape, dtype=features.dtype, device=features.device)
+        # the card takes the batch in one launch of each kernel; the plain
+        # versions take one sample at a time, which bounds their f32 temporaries
+        parts = [slice(None)] if features.is_cuda else [slice(b, b + 1) for b in range(B)]
+        for s in parts:
+            t, _ = paired_grad(g_vol[s], warps[s], features[s], dref_out=dfeat[s, 0])
+            # every (sample, source view) pair's transpose, into dfeat's source views
+            warp_grad(
+                t.flatten(0, 1), proj[s, 1:].flatten(0, 1), proj[s, :1].expand(-1, V - 1, -1, -1).flatten(0, 1),
+                depth[s, None].expand(-1, V - 1, -1).flatten(0, 1), out=dfeat[s, 1:],
+            )
+        return dfeat, None, None, None, None
 
 
 def paired_cost_volume(
@@ -76,8 +83,8 @@ def paired_cost_volume(
     """Differentiable variance cost volume for training: features
     [B, V, H, W, C] (view 0 = reference), proj_matrices [B, V, 4, 4] f32,
     depth_values [B, D] f32 -> [B, D, H, W, C] in ``out_dtype`` (default: the
-    features dtype), through K1 (emitting the warps) forward and K3 backward
-    on the card."""
+    features dtype), through K1 (emitting the warps) forward and K3-terms
+    and K3 backward on the card."""
     return PairedCostVolume.apply(
         features, proj_matrices, depth_values, out_dtype or features.dtype, depth_chunk
     )

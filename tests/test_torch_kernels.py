@@ -15,6 +15,7 @@ from scene_3dreconstruction_mvsnet_tpu_torch.ops import (
     warp_src_feature_grad,
 )
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
+from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import paired_grad as k3t
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import softmax_regression as k2
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import sweep_variance as k1
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import warp_grad as k3
@@ -41,6 +42,27 @@ def _rig(H, W, C, D, V, rot_deg):
         P[:3, :4] = K @ E[:3, :4]
         projs.append(P)
     return fea, np.stack(projs), np.linspace(425.0, 905.0, D, dtype=np.float32)
+
+
+def camera_among_planes_rig(H=24, W=72, C=32):
+    """Features, projections [2, 4, 4] and 7 planes (425 ... 905) of a rig
+    whose source camera stands among the planes: centred at depth 650 and
+    turned 5 degrees about y. Its principal plane cuts the plane at 665
+    inside the reference view, so that plane's pixel homography changes the
+    sign of its denominator (``gather_geometry`` clears its flag and K3 walks
+    every ref pixel); the planes at 425-585 lie wholly behind the source
+    camera and 745-905 wholly in front, and their maps keep one sign."""
+    rng = np.random.RandomState(5)
+    fea = rng.rand(2, H, W, C).astype(np.float32)
+    K = np.array([[0.7 * W, 0, W / 8], [0, 0.7 * W, H / 8], [0, 0, 1]], np.float32)
+    a = np.deg2rad(5.0)
+    E = np.eye(4, dtype=np.float32)
+    E[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    E[:3, 3] = -E[:3, :3] @ np.array([0.0, 0.0, 650.0], np.float32)
+    projs = np.stack([np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32)])
+    projs[0, :3, :4] = K @ np.eye(4, dtype=np.float32)[:3, :4]
+    projs[1, :3, :4] = K @ E[:3, :4]
+    return fea, projs, np.linspace(425.0, 905.0, 7, dtype=np.float32)
 
 
 def _batch(B, H, W, C, D, V, rot_deg):
@@ -118,6 +140,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         k1.sweep_variance(feats, proj, torch.ones((1, 3), device=cuda))
     with pytest.raises(ValueError, match="multiple of 8"):
         k3.warp_grad(torch.zeros((1, 3, 8, 8, 12), device=cuda), proj[:, 1], proj[:, 0], torch.ones((1, 3), device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k3t.paired_grad(torch.zeros((1, 3, 8, 8, 12), device=cuda), torch.zeros((1, 1, 3, 8, 8, 12), device=cuda),
+                        feats)
     with pytest.raises(TypeError):
         k2.softmax_regression(torch.zeros((1, 4, 2, 2), device=cuda, dtype=torch.float16),
                               torch.ones((1, 4), device=cuda))
@@ -154,37 +179,101 @@ def test_sweep_variance_emit_matches_plain(cuda, extra_views, C, B, rot_deg, dty
                 assert bf16_ulps(warps[b:b + 1, v], ref) <= 1.0
 
 
-@pytest.mark.parametrize("rot_deg", [0.0, 2.0])
-def test_warp_grad_kernel_matches_plain(cuda, rot_deg):
-    """K3 against grid_sample's backward, at the bound the JAX package holds
-    its TPU kernel to against autodiff (1e-4 x max|plain|); f32 atomics sum
-    in a varying order."""
-    fea, projs, dv = _rig(24, 72, 32, 7, 2, rot_deg=rot_deg)
-    g = torch.from_numpy(np.random.RandomState(2).rand(1, 7, 24, 72, 32).astype(np.float32)).to(cuda)
-    proj = torch.from_numpy(projs).to(cuda)[None]
-    depth = torch.from_numpy(dv).to(cuda)[None]
+def _warp_grad_pairs(cuda, fea_projs_dv, rng_seed):
+    """K3 for the rig's source views as one launch of pairs, and the plain
+    version for each pair: (out, again, plain, LAUNCHES added)."""
+    _, projs, dv = fea_projs_dv
+    n, (D,) = projs.shape[0] - 1, dv.shape
+    proj = torch.from_numpy(projs).to(cuda)
+    depth = torch.from_numpy(dv).to(cuda)[None].repeat(n, 1)
+    H, W, C = fea_projs_dv[0].shape[1:]
+    g = torch.from_numpy(np.random.RandomState(rng_seed).randn(n, D, H, W, C).astype(np.float32)).to(cuda)
+    src, ref = proj[1:], proj[:1].repeat(n, 1, 1)
     before = k3.LAUNCHES
-    out = k3.warp_grad(g, proj[:, 1], proj[:, 0], depth)
+    out = k3.warp_grad(g, src, ref, depth)
+    again = k3.warp_grad(g, src, ref, depth)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES == before + 1 and out.shape == (1, 24, 72, 32) and out.dtype == torch.float32
-    ref = warp_src_feature_grad(g, proj[:, 1], proj[:, 0], depth)
-    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    plain = torch.cat([warp_src_feature_grad(g[i:i + 1], src[i:i + 1], ref[i:i + 1], depth[i:i + 1]) for i in range(n)])
+    return out, again, plain, k3.LAUNCHES - before
+
+
+@pytest.mark.parametrize("H,W,C,D", [(24, 72, 32, 7), (9, 37, 32, 5), (11, 26, 16, 6)])
+@pytest.mark.parametrize("rot_deg", [0.0, 2.0])
+def test_warp_grad_kernel_matches_plain(cuda, rot_deg, H, W, C, D):
+    """K3 (the gather) for two (sample, source view) pairs in one launch
+    against grid_sample's backward, at the bound the JAX package holds its
+    TPU kernel to against autodiff (1e-4 x max|plain|); two launches give the
+    same bits. The sizes cut the blocks and the plane slices raggedly, and
+    C = 16 takes the build whose lanes do not share the candidates."""
+    out, again, plain, launches = _warp_grad_pairs(cuda, _rig(H, W, C, D, 3, rot_deg=rot_deg), 2)
+    assert launches == 2 and out.shape == (2, H, W, C) and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    assert (out - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+def test_warp_grad_kernel_on_planes_through_the_source_camera(cuda):
+    """A plane whose map changes the sign of its denominator is flagged and
+    walked whole, and K3 stays exact there and on the planes behind the
+    source camera."""
+    rig = camera_among_planes_rig()
+    homography = k1.homography_terms(torch.from_numpy(rig[1]).to(cuda))
+    _, ok = k3.gather_geometry(homography, torch.from_numpy(rig[2]).to(cuda)[None], 24, 72)
+    assert ok.tolist() == [[True, True, True, False, True, True, True]]
+    out, again, plain, launches = _warp_grad_pairs(cuda, rig, 3)
+    assert launches == 2 and torch.equal(out, again)
+    assert (out - plain).abs().max().item() <= 1e-4 * plain.abs().max().item()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "ncdhw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [3, 4, 5])
+def test_paired_grad_kernel_matches_plain(cuda, V, dtype, layout):
+    """K3-terms against its plain version: t bit for bit where the view sum
+    has two terms (V = 3), else within 1e-6 x max|plain| (the sum's order);
+    dref within 1e-4 x max|plain| (another order over the planes), the same
+    from launch to launch. The volume's cotangent comes contiguous or in the
+    conv's NCDHW layout, as the train step hands it over; 9 x 37 pixels and
+    7 planes cut the blocks and the plane slices raggedly."""
+    B, D, H, W, C = 2, 7, 9, 37, 32
+    rng = np.random.RandomState(V)
+    feats = torch.from_numpy(rng.rand(B, V, H, W, C).astype(np.float32)).to(cuda, dtype)
+    warps = torch.from_numpy(rng.rand(B, V - 1, D, H, W, C).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.randn(B, D, H, W, C).astype(np.float32)).to(cuda, dtype)
+    if layout == "ncdhw":
+        g = g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+    before = k3t.LAUNCHES
+    t, dref = k3t.paired_grad(g, warps, feats)
+    _, dref2 = k3t.paired_grad(g, warps, feats)
+    torch.cuda.synchronize()
+    assert k3t.LAUNCHES == before + 2 and t.shape == warps.shape and t.dtype == dref.dtype == torch.float32
+    t_plain, dref_plain = k3t.paired_grad_plain(g, warps, feats)
+    if V == 3:
+        assert torch.equal(t, t_plain)
+    else:
+        assert (t - t_plain).abs().max().item() <= 1e-6 * t_plain.abs().max().item()
+    assert torch.equal(dref, dref2)
+    assert (dref - dref_plain).abs().max().item() <= 1e-4 * dref_plain.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
 def test_paired_cost_volume_grad_matches_plain(cuda, dtype, tol):
-    """The paired sweep (K1 emit forward, K3 backward) against autograd
-    through the plain f32 sweep of the same (dtype-rounded) features."""
-    fea, projs, dv = _rig(24, 72, 32, 7, 3, rot_deg=2.0)
-    feats = torch.from_numpy(fea).to(cuda, dtype)[None]
-    proj = torch.from_numpy(projs).to(cuda)[None]
-    depth = torch.from_numpy(dv).to(cuda)[None]
-    G = torch.from_numpy(np.random.RandomState(3).rand(1, 7, 24, 72, 32).astype(np.float32)).to(cuda)
+    """The paired sweep (K1 emit forward; K3-terms and K3 backward, one
+    launch each for the batch of two) against autograd through the plain f32
+    sweep of the same (dtype-rounded) features; two backward passes give the
+    same bits."""
+    fea, projs, dv = _batch(2, 24, 72, 32, 7, 3, rot_deg=2.0)
+    feats = torch.from_numpy(fea).to(cuda, dtype)
+    proj = torch.from_numpy(projs).to(cuda)
+    depth = torch.from_numpy(dv).to(cuda)
+    G = torch.from_numpy(np.random.RandomState(3).rand(2, 7, 24, 72, 32).astype(np.float32)).to(cuda)
     x = feats.clone().requires_grad_(True)
+    before = (k3t.LAUNCHES, k3.LAUNCHES)
     (got,) = torch.autograd.grad((paired_cost_volume(x, proj, depth).float() * G).sum(), x)
+    assert (k3t.LAUNCHES, k3.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    (again,) = torch.autograd.grad((paired_cost_volume(x, proj, depth).float() * G).sum(), x)
     x32 = feats.float().requires_grad_(True)
     (want,) = torch.autograd.grad((cost_volume_variance(x32, proj, depth) * G).sum(), x32)
-    assert got.dtype == dtype
+    assert got.dtype == dtype and torch.equal(got, again)
     assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
 
 

@@ -79,6 +79,7 @@ assert {"scene_3dreconstruction_mvsnet_tpu_torch.train_cli", "scene_3dreconstruc
         "scene_3dreconstruction_mvsnet_tpu_torch.data.pipeline", "scene_3dreconstruction_mvsnet_tpu_torch.io.images",
         "scene_3dreconstruction_mvsnet_tpu_torch.ops.paired_sweep",
         "scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.warp_grad",
+        "scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.paired_grad",
         "scene_3dreconstruction_mvsnet_tpu_torch.eval_cli", "scene_3dreconstruction_mvsnet_tpu_torch.eval.depth_gen",
         "scene_3dreconstruction_mvsnet_tpu_torch.eval.filtering", "scene_3dreconstruction_mvsnet_tpu_torch.eval.fusion",
         "scene_3dreconstruction_mvsnet_tpu_torch.eval.scene_kit", "scene_3dreconstruction_mvsnet_tpu_torch.utils.debug_dump",
