@@ -6,13 +6,16 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints lines tagged with its name; any failure raises and the
 exit code is not 0):
   1. device  the card's name, and name + power limit from nvidia-smi;
-  2. build   the sweep-variance, paired backward-terms, warp-backward,
-             fused-conv0 and single-view warp CUDA kernels (nvcc, sm_90a, one
-             compiler process each, started together) and the
-             softmax-regression Triton kernel, from the checkout's sources;
+  2. build   the sweep-variance, softmax-regression, paired backward-terms,
+             warp-backward, fused-conv0 and single-view warp CUDA kernels
+             (nvcc, sm_90a, one compiler process each, started together),
+             from the checkout's sources;
   3. kernels each kernel against its plain PyTorch version, with times from
-             CUDA events: K1, K2, K4 (and the module conv0 it replaces) and
-             K5 at the inference headline's shapes (V=5, D=192, 216x288x32
+             CUDA events and each kernel's own device time per launch from
+             torch.profiler: K1, K2 (bf16 and f32 logits, and bf16 against
+             the same values in f32 bit for bit), K4 (and the module conv0 it
+             replaces) and K5 (also bit for bit against K1-emit's warps) at
+             the inference headline's shapes (V=5, D=192, 216x288x32
              features), K1's emit mode, K3-terms and K3 at the training
              recipe's (V=3, D=192, 128x160x32; K3 also twice for bit
              equality);
@@ -121,10 +124,16 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed_pair(kernel_fn, plain_fn, iters: int, plain_iters: int, library_fn=None):
+def timed_pair(kernel_fn, plain_fn, iters: int, plain_iters: int, kernel: str, library_fn=None):
     """Warm each, then time plain, library, kernel, kernel, library, plain in
-    turns; the mean of each pair: (kernel ms, plain ms, library ms or None)."""
+    turns; the mean of each pair, and the device time per launch of the CUDA
+    kernel whose name holds ``kernel`` from torch.profiler over a third run
+    of the same kernel launches (the profiler's own host work would slow the
+    wrappers that launch small torch ops and so inflate the events' time):
+    (kernel ms, plain ms, library ms or None, device ms or None where the
+    profiler saw none)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     fns = [kernel_fn, plain_fn] + ([library_fn] if library_fn else [])
     for fn in fns:
@@ -136,7 +145,16 @@ def timed_pair(kernel_fn, plain_fn, iters: int, plain_iters: int, library_fn=Non
     k2 = cuda_time_ms(kernel_fn, iters)
     l2 = cuda_time_ms(library_fn, iters) if library_fn else None
     p2 = cuda_time_ms(plain_fn, plain_iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if library_fn else None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_time_ms(kernel_fn, iters)
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    device_ms = sum(spans) / 1e3 / len(spans) if spans else None
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2 if library_fn else None, device_ms
+
+
+def fmt_ms(ms) -> str:
+    return "not measured (the profiler saw no launch)" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes: float, flops: float, peak: str) -> dict:
@@ -226,24 +244,14 @@ def phase_device():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    import torch
-
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import build_cuda_library
-    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.softmax_regression import softmax_regression_cuda
 
-    names = ("sweep_variance", "paired_grad", "warp_grad", "conv0_fused", "plane_sweep_warp")
+    names = ("sweep_variance", "softmax_regression", "paired_grad", "warp_grad", "conv0_fused", "plane_sweep_warp")
+    t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process each, side by side
-        builds = {n: pool.submit(build_cuda_library, n) for n in names}
-        t0 = time.perf_counter()
-        # meanwhile the first launch compiles the Triton kernel for the headline's specialisation
-        cost = torch.zeros((1, D, H // 4, W // 4), device="cuda")
-        dv = torch.linspace(DEPTH_MIN, DEPTH_MAX, D, device="cuda")[None]
-        softmax_regression_cuda(cost, dv)
-        torch.cuda.synchronize()
-        k2_s = time.perf_counter() - t0
-        results = {n: f.result() for n, f in builds.items()}
+        results = dict(zip(names, pool.map(build_cuda_library, names)))
     log("build", "; ".join(f"{n}.cu (nvcc sm_90a) {results[n][1]:.2f} s" for n in names)
-        + f"; softmax_regression (triton) {k2_s:.2f} s")
+        + f"; {time.perf_counter() - t0:.2f} s in all")
     for n in names:
         for line in results[n][2].splitlines():
             if "registers" in line or "spill" in line:
@@ -287,65 +295,91 @@ def phase_kernels(gen) -> list[dict]:
         if not err_f32 <= SWEEP_ATOL_F32 * scale or not err_bf <= SWEEP_ATOL_BF16 * scale_bf:
             raise AssertionError("sweep_variance kernel disagrees with its plain version")
         # time the main path's bf16 configuration: bf16 features -> bf16 volume
-        k_ms, p_ms, _ = timed_pair(
+        k_ms, p_ms, _, dev_ms = timed_pair(
             lambda: sweep_variance_cuda(feats_bf[0], proj[0], depth_values[0]),
             lambda: cost_volume_variance(feats_bf, proj, depth_values),
-            iters=10, plain_iters=3,
+            iters=10, plain_iters=3, kernel="sweep_variance_kernel",
         )
-        k_ms32, p_ms32, _ = timed_pair(
+        k_ms32, p_ms32, _, dev_ms32 = timed_pair(
             lambda: sweep_variance_cuda(feats[0], proj[0], depth_values[0]),
             lambda: cost_volume_variance(feats, proj, depth_values),
-            iters=10, plain_iters=3,
+            iters=10, plain_iters=3, kernel="sweep_variance_kernel",
         )
         hc = feats.shape[2:]
         k1_bound = bound(feats_bf.numel() * 2 + D * hc.numel() * 2,
                          sweep_flops(proj[0], depth_values[0], *hc), "f32")
-        log("kernels", f"sweep_variance bf16->bf16: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                       f"{k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}); f32->f32: kernel {k_ms32:.3f} ms, "
-                       f"plain {p_ms32:.3f} ms; library call: none ({NO_LIBRARY['sweep_variance']})")
+        log("kernels", f"sweep_variance bf16->bf16: kernel {k_ms:.3f} ms (device {fmt_ms(dev_ms)}), plain "
+                       f"{p_ms:.3f} ms, bound {k1_bound['bound_ms']:.3f} ms ({k1_bound['bound_by']}); f32->f32: "
+                       f"kernel {k_ms32:.3f} ms (device {fmt_ms(dev_ms32)}), plain {p_ms32:.3f} ms; library call: "
+                       f"none ({NO_LIBRARY['sweep_variance']})")
         rows.append({
             "name": "sweep_variance", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/sweep_variance.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/sweep_variance.py:607",
-            "max_abs_err": err_f32, "tol": SWEEP_ATOL_F32 * scale, "ms": k_ms, "plain_ms": p_ms,
-            **k1_bound, "library_ms": None, "library_none": NO_LIBRARY["sweep_variance"],
+            "max_abs_err": err_f32, "tol": SWEEP_ATOL_F32 * scale, "ms": k_ms, "device_ms": dev_ms,
+            "plain_ms": p_ms, **k1_bound, "library_ms": None, "library_none": NO_LIBRARY["sweep_variance"],
             "max_abs_err_bf16": err_bf, "tol_bf16": SWEEP_ATOL_BF16 * scale_bf, "ms_f32": k_ms32,
-            "plain_ms_f32": p_ms32,
+            "device_ms_f32": dev_ms32, "plain_ms_f32": p_ms32,
         })
         del feats, feats_bf
 
-        # K2 on logits of the scale the U-Net emits
+        # K2 on logits of the scale the U-Net emits: f32, and bf16 as the bf16
+        # model's CostRegNet hands them over (the kernel converts as it reads)
         cost = torch.randn((1, D, H // 4, W // 4), generator=gen, device=dev) * 3.0
-        ref_depth, ref_conf = regress_depth_and_confidence(cost, depth_values)
-        depth, conf = softmax_regression_cuda(cost, depth_values)
+        cost_bf = cost.to(torch.bfloat16)
+        checks, out = {}, {}
+        rng_ = DEPTH_MAX - DEPTH_MIN
+        for tag, x in (("f32", cost), ("bf16", cost_bf)):
+            ref_depth, ref_conf = regress_depth_and_confidence(x.float(), depth_values)
+            out[tag] = softmax_regression_cuda(x, depth_values)
+            torch.cuda.synchronize()
+            d_diff = (out[tag][0] - ref_depth).abs()
+            near_int = near_integer_index(ref_depth, d_diff)
+            checks[tag] = (d_diff.max().item(), (out[tag][1] - ref_conf).abs()[~near_int].max().item(),
+                           int(near_int.sum().item()))
+        # the bf16 logits and the same values in f32 go through the same arithmetic
+        same = softmax_regression_cuda(cost_bf.float(), depth_values)
         torch.cuda.synchronize()
-        d_diff = (depth - ref_depth).abs()
-        near_int = near_integer_index(ref_depth, d_diff)
-        n_excl = int(near_int.sum().item())
-        d_err = d_diff.max().item()
-        c_err = (conf - ref_conf).abs()[~near_int].max().item()
-        log("kernels", f"softmax_regression: depth max|err| {d_err:.3e} vs {REG_DEPTH_TOL * (DEPTH_MAX - DEPTH_MIN):.3e}; "
-                       f"conf max|err| {c_err:.3e} vs {REG_CONF_ATOL:.0e}; {n_excl} of {near_int.numel()} "
-                       f"pixels excluded (expected index near an integer)")
-        if not d_err <= REG_DEPTH_TOL * (DEPTH_MAX - DEPTH_MIN) or not c_err <= REG_CONF_ATOL:
+        bf16_bits = torch.equal(out["bf16"][0], same[0]) and torch.equal(out["bf16"][1], same[1])
+        log("kernels", "softmax_regression: " + "; ".join(
+            f"{tag} depth max|err| {d:.3e} vs {REG_DEPTH_TOL * rng_:.3e}, conf max|err| {c:.3e} vs "
+            f"{REG_CONF_ATOL:.0e} ({n} of {cost.numel() // D} pixels excluded: expected index near an integer)"
+            for tag, (d, c, n) in checks.items()) + f"; K2(bf16 x) {'equal to' if bf16_bits else 'NOT equal to'} "
+            "K2(x.float()) bit for bit")
+        if not all(d <= REG_DEPTH_TOL * rng_ and c <= REG_CONF_ATOL for d, c, _ in checks.values()) or not bf16_bits:
             raise AssertionError("softmax_regression kernel disagrees with its plain version")
-        k_ms, p_ms, _ = timed_pair(
-            lambda: softmax_regression_cuda(cost, depth_values),
-            lambda: regress_depth_and_confidence(cost, depth_values),
-            iters=50, plain_iters=20,
-        )
-        # per cost element: the max, the shift, exp, the sum and the weighted sum
-        k2_bound = bound(cost.numel() * 4 + 2 * depth.numel() * 4, 5 * cost.numel(), "f32")
-        log("kernels", f"softmax_regression: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                       f"{k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}); library call: none "
-                       f"({NO_LIBRARY['softmax_regression']})")
+        times = {tag: timed_pair(lambda: softmax_regression_cuda(x, depth_values),
+                                 lambda: regress_depth_and_confidence(x.float(), depth_values),
+                                 iters=50, plain_iters=20, kernel="softmax_regression_kernel")
+                 for tag, x in (("bf16", cost_bf), ("f32", cost))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the wrapper's host time per call: its checks, two outputs, the launch
+        for _ in range(50):
+            softmax_regression_cuda(cost_bf, depth_values)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 50
+        torch.cuda.synchronize()
+        # per logit: the max, the shift, exp, the sum and the weighted sum; the
+        # logits read once in their dtype, the two maps written once
+        maps = 2 * cost.numel() // D * 4
+        k2_bound = {tag: bound(x.numel() * x.element_size() + maps, 5 * x.numel(), "f32")
+                    for tag, x in (("bf16", cost_bf), ("f32", cost))}
+        log("kernels", "softmax_regression: " + "; ".join(
+            f"{tag} logits: kernel {times[tag][0]:.4f} ms (device {fmt_ms(times[tag][3])}), plain (with the cast to "
+            f"f32) {times[tag][1]:.4f} ms, bound {k2_bound[tag]['bound_ms']:.4f} ms ({k2_bound[tag]['bound_by']})"
+            for tag in times) + f"; the wrapper's host time {host_ms:.4f} ms per call; library call: none "
+            f"({NO_LIBRARY['softmax_regression']})")
         rows.append({
-            "name": "softmax_regression", "route": "triton",
-            "source": "scene_3dreconstruction_mvsnet_tpu_torch/ops/kernels/softmax_regression.py",
+            "name": "softmax_regression", "route": "cuda",
+            "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/softmax_regression.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/softmax_regression.py:86",
-            "max_abs_err": d_err, "tol": REG_DEPTH_TOL * (DEPTH_MAX - DEPTH_MIN), "ms": k_ms, "plain_ms": p_ms,
-            **k2_bound, "library_ms": None, "library_none": NO_LIBRARY["softmax_regression"],
-            "conf_max_abs_err": c_err, "conf_tol": REG_CONF_ATOL, "excluded_pixels": n_excl,
+            "max_abs_err": checks["bf16"][0], "tol": REG_DEPTH_TOL * rng_, "ms": times["bf16"][0],
+            "device_ms": times["bf16"][3], "plain_ms": times["bf16"][1], **k2_bound["bf16"], "library_ms": None,
+            "library_none": NO_LIBRARY["softmax_regression"], "conf_max_abs_err": checks["bf16"][1],
+            "conf_tol": REG_CONF_ATOL, "excluded_pixels": checks["bf16"][2], "bf16_equals_f32_bits": bf16_bits,
+            "max_abs_err_f32": checks["f32"][0], "conf_max_abs_err_f32": checks["f32"][1],
+            "excluded_pixels_f32": checks["f32"][2], "ms_f32": times["f32"][0], "device_ms_f32": times["f32"][3],
+            "plain_ms_f32": times["f32"][1], "bound_ms_f32": k2_bound["f32"]["bound_ms"],
+            "bound_by_f32": k2_bound["f32"]["bound_by"], "wrapper_host_ms": host_ms,
         })
     return rows
 
@@ -355,7 +389,8 @@ def phase_eval_kernels(gen) -> list[dict]:
     shapes: conv0 on the bf16 cost volume [1, 192, 216, 288, 32] (also
     timing the module conv0 it replaces: cuDNN's bf16 conv, BatchNorm and
     ReLU after the permute to NCDHW), and one source view's warp in f32 and
-    bf16."""
+    bf16, also held bit for bit against K1-emit's warps of the headline's
+    four source views."""
     import torch
 
     from scene_3dreconstruction_mvsnet_tpu_torch.models.blocks import ConvBnReLU3D
@@ -366,6 +401,7 @@ def phase_eval_kernels(gen) -> list[dict]:
         conv0_bn_relu_cuda, conv0_bn_relu_plain, fold_bn,
     )
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.plane_sweep_warp import plane_sweep_warp_cuda
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.sweep_variance import sweep_variance_cuda
 
     import torch.nn.functional as F
 
@@ -388,10 +424,10 @@ def phase_eval_kernels(gen) -> list[dict]:
         w_fold = (conv0.conv.weight * scale[:, None, None, None, None]).to(torch.bfloat16)
         b_fold = bias.to(torch.bfloat16)
         x_cl = x.permute(0, 4, 1, 2, 3)
-        k_ms, p_ms, lib_ms = timed_pair(
+        k_ms, p_ms, lib_ms, dev_ms = timed_pair(
             lambda: conv0_bn_relu_cuda(x, conv0.conv.weight, scale, bias),
             lambda: conv0_bn_relu_plain(x, conv0.conv.weight, scale, bias),
-            iters=5, plain_iters=3,
+            iters=5, plain_iters=3, kernel="conv0_fused_kernel",
             library_fn=lambda: torch.relu_(F.conv3d(x_cl, w_fold, b_fold, padding=1)),
         )
         module_ms = cuda_time_ms(lambda: conv0(x.permute(0, 4, 1, 2, 3).contiguous()), 5)
@@ -399,7 +435,8 @@ def phase_eval_kernels(gen) -> list[dict]:
         k4_bound = bound(x.numel() * 2 + B_ * 8 * D_ * h_ * w_ * 2,
                          2 * 32 * 8 * B_ * (3 * D_ - 2) * (3 * h_ - 2) * (3 * w_ - 2), "bf16 tensor cores")
         log("kernels", f"conv0_fused (headline, bf16): max|err| {err:.3e} = {ulps:.3f} bf16 ulp (limit 1, ulp "
-                       f"floor {floor:.3e}; {100 * relu_share:.1f} % zeros); kernel {k_ms:.3f} ms, plain (f32 "
+                       f"floor {floor:.3e}; {100 * relu_share:.1f} % zeros); kernel {k_ms:.3f} ms (device "
+                       f"{fmt_ms(dev_ms)}), plain (f32 "
                        f"conv) {p_ms:.3f} ms, library (relu(conv3d) on the channels-last view, cuDNN bf16, BN "
                        f"folded) {lib_ms:.3f} ms, module conv0 (permute + cuDNN bf16 conv + BN + ReLU) "
                        f"{module_ms:.3f} ms; bound {k4_bound['bound_ms']:.3f} ms ({k4_bound['bound_by']})")
@@ -409,7 +446,8 @@ def phase_eval_kernels(gen) -> list[dict]:
             "name": "conv0_fused", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/conv0_fused.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/conv0_fused.py:237",
-            "max_abs_err": err, "max_ulp": ulps, "tol_ulp": 1.0, "ms": k_ms, "plain_ms": p_ms, **k4_bound,
+            "max_abs_err": err, "max_ulp": ulps, "tol_ulp": 1.0, "ms": k_ms, "device_ms": dev_ms,
+            "plain_ms": p_ms, **k4_bound,
             "library_ms": lib_ms, "library_call": "torch.relu_(F.conv3d(x.permute(0, 4, 1, 2, 3), w_fold, b_fold))",
             "module_ms": module_ms,
         })
@@ -418,43 +456,60 @@ def phase_eval_kernels(gen) -> list[dict]:
         projs, dv = headline_rig(REF_CAMERAS[0])
         proj = torch.from_numpy(projs).to(dev)
         depth = torch.from_numpy(dv).to(dev)
-        src32 = torch.rand((H // 4, W // 4, 32), generator=gen, device=dev)
+        feats = torch.rand((V, H // 4, W // 4, 32), generator=gen, device=dev)
+        src32 = feats[1]
         grid, taps = sweep_grid(proj[1], proj[0], depth, H // 4, W // 4)
-        errs, times = {}, {}
-        for tag, src in (("f32", src32), ("bf16", src32.to(torch.bfloat16))):
+        errs, times, emit_equal = {}, {}, {}
+        for tag, f in (("f32", feats), ("bf16", feats.to(torch.bfloat16))):
+            src = f[1]
             out = plane_sweep_warp_cuda(src, proj[1], proj[0], depth)
             ref = warp_src_feature(src[None], proj[None, 1], proj[None, 0], depth[None])[0]
             torch.cuda.synchronize()
             errs[tag] = ((out.float() - ref.float()).abs().max().item(), bf16_ulps(out, ref))
             del out, ref
+            # K1-emit's warps of the same source views, from the same features
+            _, warps = sweep_variance_cuda(f, proj, depth, emit_warps=True)
+            emit_equal[tag] = all(torch.equal(plane_sweep_warp_cuda(f[v], proj[v], proj[0], depth), warps[v - 1])
+                                  for v in range(1, V))
+            del warps
             # the library yardstick: grid_sample on the precomputed grid, in f32
             # (its grid takes the input's dtype, and a bf16 grid is another function)
             src_nchw = src.float().permute(2, 0, 1)[None]
             times[tag] = timed_pair(
                 lambda: plane_sweep_warp_cuda(src, proj[1], proj[0], depth),
                 lambda: warp_src_feature(src[None], proj[None, 1], proj[None, 0], depth[None]),
-                iters=10, plain_iters=3,
+                iters=10, plain_iters=3, kernel="plane_sweep_warp_kernel",
                 library_fn=lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
                                                  align_corners=False),
             )
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the wrapper's host time per call: the homography's torch ops and the launch
+        for _ in range(10):
+            plane_sweep_warp_cuda(src, proj[1], proj[0], depth)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
         out_elems = D * src32.numel()
         k5_bound = bound(src32.numel() * 2 + out_elems * 2, 2 * 32 * taps, "f32")
         log("kernels", f"plane_sweep_warp (headline, one view): f32 max|err| {errs['f32'][0]:.3e} (atol 0), bf16 "
-                       f"max|err| {errs['bf16'][0]:.3e} = {errs['bf16'][1]:.3f} ulp (limit 1); bf16 kernel "
-                       f"{times['bf16'][0]:.3f} ms, plain {times['bf16'][1]:.3f} ms, library (grid_sample, f32) "
-                       f"{times['bf16'][2]:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms ({k5_bound['bound_by']}); "
-                       f"f32 kernel {times['f32'][0]:.3f} ms, plain {times['f32'][1]:.3f} ms")
-        if errs["f32"][0] != 0.0 or errs["bf16"][1] > 1.0:
-            raise AssertionError("plane_sweep_warp kernel disagrees with the plain warp")
+                       f"max|err| {errs['bf16'][0]:.3e} = {errs['bf16'][1]:.3f} ulp (limit 1); K1-emit's warps of "
+                       f"views 1-{V - 1} {'equal' if all(emit_equal.values()) else 'NOT equal'} bit for bit "
+                       f"{emit_equal}; bf16 kernel {times['bf16'][0]:.3f} ms (device {fmt_ms(times['bf16'][3])}), "
+                       f"plain {times['bf16'][1]:.3f} ms, library (grid_sample, f32) {times['bf16'][2]:.3f} ms, bound "
+                       f"{k5_bound['bound_ms']:.3f} ms ({k5_bound['bound_by']}); f32 kernel {times['f32'][0]:.3f} ms "
+                       f"(device {fmt_ms(times['f32'][3])}), plain {times['f32'][1]:.3f} ms; the wrapper's host time "
+                       f"{host_ms:.3f} ms per call")
+        if errs["f32"][0] != 0.0 or errs["bf16"][1] > 1.0 or not all(emit_equal.values()):
+            raise AssertionError("plane_sweep_warp kernel disagrees with the plain warp or with K1-emit's warps")
         rows.append({
             "name": "plane_sweep_warp", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/plane_sweep_warp.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/plane_sweep_warp.py:358",
-            "max_abs_err": errs["f32"][0], "tol": 0.0, "ms": times["bf16"][0], "plain_ms": times["bf16"][1],
-            **k5_bound, "library_ms": times["bf16"][2],
+            "max_abs_err": errs["f32"][0], "tol": 0.0, "ms": times["bf16"][0], "device_ms": times["bf16"][3],
+            "plain_ms": times["bf16"][1], **k5_bound, "library_ms": times["bf16"][2],
             "library_call": "F.grid_sample(src, grid) on the precomputed grid, f32",
             "bf16_max_abs_err": errs["bf16"][0], "bf16_max_ulp": errs["bf16"][1], "bf16_tol_ulp": 1.0,
-            "ms_f32": times["f32"][0], "plain_ms_f32": times["f32"][1],
+            "equals_k1_emit_warps": emit_equal, "ms_f32": times["f32"][0], "device_ms_f32": times["f32"][3],
+            "plain_ms_f32": times["f32"][1], "wrapper_host_ms": host_ms,
         })
     return rows
 
@@ -774,8 +829,8 @@ def phase_train_kernels(gen) -> list[dict]:
             times[tag] = timed_pair(
                 lambda: sweep_variance_cuda(f[0], proj[0], dv[0], emit_warps=True),
                 lambda: cost_volume_variance(f, proj, dv, emit_warps=True),
-                iters=10, plain_iters=3,
-            )[:2]
+                iters=10, plain_iters=3, kernel="sweep_variance_kernel",
+            )
             times[tag + "_no_emit"] = cuda_time_ms(lambda: sweep_variance_cuda(f[0], proj[0], dv[0]), 10)
         log("kernels", f"sweep_variance emit (recipe): f32 warps max|err| {errs['f32'][0]:.3e} (atol 0), "
                        f"bf16 warps max|err| {errs['bf16'][0]:.3e} = {errs['bf16'][1]:.3f} ulp (limit 1 ulp); "
@@ -784,16 +839,17 @@ def phase_train_kernels(gen) -> list[dict]:
             raise AssertionError("K1's emitted warps disagree with the plain warp")
         hc = feats32.shape[2:]
         emit_bound = bound(feats32.numel() * 2 + TV * TD * hc.numel() * 2, sweep_flops(proj[0], dv[0], *hc), "f32")
-        log("kernels", f"sweep_variance emit (recipe): bf16 kernel {times['bf16'][0]:.3f} ms "
-                       f"(no emit {times['bf16_no_emit']:.3f} ms), plain {times['bf16'][1]:.3f} ms, bound "
+        log("kernels", f"sweep_variance emit (recipe): bf16 kernel {times['bf16'][0]:.3f} ms (device "
+                       f"{fmt_ms(times['bf16'][3])}; no emit {times['bf16_no_emit']:.3f} ms), plain "
+                       f"{times['bf16'][1]:.3f} ms, bound "
                        f"{emit_bound['bound_ms']:.3f} ms ({emit_bound['bound_by']}); f32 kernel "
                        f"{times['f32'][0]:.3f} ms (no emit {times['f32_no_emit']:.3f} ms), plain {times['f32'][1]:.3f} ms")
         rows.append({
             "name": "sweep_variance_emit", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/sweep_variance.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/sweep_variance.py:607",
-            "max_abs_err": errs["f32"][0], "tol": 0.0, "ms": times["bf16"][0], "plain_ms": times["bf16"][1],
-            **emit_bound, "library_ms": None, "library_none": NO_LIBRARY["sweep_variance"],
+            "max_abs_err": errs["f32"][0], "tol": 0.0, "ms": times["bf16"][0], "device_ms": times["bf16"][3],
+            "plain_ms": times["bf16"][1], **emit_bound, "library_ms": None, "library_none": NO_LIBRARY["sweep_variance"],
             "bf16_max_abs_err": errs["bf16"][0], "bf16_max_ulp": errs["bf16"][1], "bf16_tol_ulp": 1.0,
             "ms_no_emit": times["bf16_no_emit"], "ms_f32": times["f32"][0], "plain_ms_f32": times["f32"][1],
             "ms_f32_no_emit": times["f32_no_emit"],
@@ -815,8 +871,9 @@ def phase_train_kernels(gen) -> list[dict]:
         d_scale = dref_plain.abs().max().item()
         d_err = (dref - dref_plain).abs().max().item()
         del t_plain, dref_plain
-        k_ms, p_ms, _ = timed_pair(lambda: paired_grad_cuda(g_vol, warps, feats),
-                                   lambda: paired_grad_plain(g_vol, warps, feats), iters=10, plain_iters=3)
+        k_ms, p_ms, _, dev_ms = timed_pair(lambda: paired_grad_cuda(g_vol, warps, feats),
+                                           lambda: paired_grad_plain(g_vol, warps, feats), iters=10, plain_iters=3,
+                                           kernel="paired_grad_kernel")
         per_value = TB * TD * hc.numel()  # (sample, plane, pixel, channel)
         terms_bytes = 2 * (g_vol.numel() + warps.numel() + feats[:, 0].numel()) + 4 * (t.numel() + dref.numel())
         # per value: g32; the view sum and the mean; dref's three; each view's two
@@ -824,7 +881,8 @@ def phase_train_kernels(gen) -> list[dict]:
         log("kernels", f"paired_grad (recipe, batch {TB}): t {'equal to' if t_equal else 'NOT equal to'} the plain "
                        f"version's (max|err| {t_err:.3e}); dref max|err| {d_err:.3e} vs "
                        f"{PAIRED_GRAD_TOL * d_scale:.3e}; "
-                       f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {terms_bound['bound_ms']:.3f} ms "
+                       f"kernel {k_ms:.3f} ms (device {fmt_ms(dev_ms)}), plain {p_ms:.3f} ms, bound "
+                       f"{terms_bound['bound_ms']:.3f} ms "
                        f"({terms_bound['bound_by']}); library call: none ({NO_LIBRARY['paired_grad']})")
         if not t_equal or not d_err <= PAIRED_GRAD_TOL * d_scale:
             raise AssertionError("paired_grad kernel disagrees with its plain version")
@@ -832,7 +890,8 @@ def phase_train_kernels(gen) -> list[dict]:
             "name": "paired_grad", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/paired_grad.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/paired_sweep.py:106",
-            "max_abs_err": t_err, "tol": 0.0, "ms": k_ms, "plain_ms": p_ms, **terms_bound, "library_ms": None,
+            "max_abs_err": t_err, "tol": 0.0, "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms, **terms_bound,
+            "library_ms": None,
             "library_none": NO_LIBRARY["paired_grad"], "dref_max_abs_err": d_err,
             "dref_tol": PAIRED_GRAD_TOL * d_scale,
         })
@@ -861,10 +920,10 @@ def phase_train_kernels(gen) -> list[dict]:
         taps = sum(grids[v][1] for v in src_views)
         g_nchw = pairs.permute(0, 4, 1, 2, 3).reshape(n_pairs, 32, -1, w_)  # a view of the cotangents
         zeros = torch.zeros((n_pairs, 32, h_, w_), device=dev)
-        k_ms, p_ms, lib_ms = timed_pair(
+        k_ms, p_ms, lib_ms, dev_ms = timed_pair(
             lambda: warp_grad_cuda(pairs, hm_step, dv_step),
             lambda: warp_src_feature_grad(pairs, src, ref_proj, dv_step),
-            iters=10, plain_iters=2,
+            iters=10, plain_iters=2, kernel="warp_grad_kernel",
             library_fn=lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, zeros, grid, 0, 0, False,
                                                                         [True, False]),
         )
@@ -877,7 +936,8 @@ def phase_train_kernels(gen) -> list[dict]:
         k3_bound = bound(pairs.numel() * 4 + n_pairs * hc.numel() * 4, 2 * 32 * taps, "f32")
         log("kernels", f"warp_grad (recipe, the step's {n_pairs} pairs in one launch): max|err| {err:.3e} vs atol "
                        f"{K3_ATOL * scale:.3e} (max|plain| {scale:.4f}); two launches "
-                       f"{'bit-identical' if same_bits else 'DIFFER'}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                       f"{'bit-identical' if same_bits else 'DIFFER'}; kernel {k_ms:.3f} ms (device "
+                       f"{fmt_ms(dev_ms)}), plain {p_ms:.3f} ms, "
                        f"library (grid_sampler_2d_backward, input gradient) {lib_ms:.3f} ms, bound "
                        f"{k3_bound['bound_ms']:.3f} ms ({k3_bound['bound_by']}); the wrapper's host time {host_ms:.3f} "
                        "ms per call")
@@ -887,7 +947,8 @@ def phase_train_kernels(gen) -> list[dict]:
             "name": "warp_grad", "route": "cuda",
             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/warp_grad.cu",
             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/warp_grad.py:517",
-            "max_abs_err": err, "tol": K3_ATOL * scale, "ms": k_ms, "plain_ms": p_ms, **k3_bound,
+            "max_abs_err": err, "tol": K3_ATOL * scale, "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+            **k3_bound,
             "library_ms": lib_ms, "library_call": "torch.ops.aten.grid_sampler_2d_backward(g, src, grid, ...)[0]",
             "pairs": n_pairs, "bit_identical_relaunch": same_bits, "wrapper_host_ms": host_ms,
         })

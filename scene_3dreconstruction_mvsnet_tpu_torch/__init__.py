@@ -7,15 +7,15 @@ module and keeps its public layouts (images ``[B, V, H, W, 3]``, projections
 converting to NCHW / NCDHW only inside the conv stacks.
 
 Inference, training and the two-stage eval CLI (``eval_cli``) run through
-five kernels written by hand for Hopper (``ops/kernels``): the plane-sweep
-variance kernel K1 (CUDA C++, with a mode that also emits the warps for
-training), the softmax-regression kernel K2 (Triton), the warp-backward
-kernel K3, the fused CostRegNet conv0 K4 and the single-view warp K5 (CUDA
-C++). Each kernel's wrapper takes its plain PyTorch version for CPU tensors
-and launches the kernel (or raises) for CUDA tensors. Nothing here imports
-JAX or the JAX package, apart from ``interop.from_jax``, the bridge that
-loads the JAX package's variables for the tests; the file formats and
-datasets are the port's own ``io`` and ``data`` packages.
+six kernels written by hand in CUDA C++ for Hopper (``ops/kernels``): the
+plane-sweep variance kernel K1 (with a mode that also emits the warps for
+training), the softmax-regression kernel K2, the variance's backward terms
+K3-terms, the warp-backward kernel K3, the fused CostRegNet conv0 K4 and the
+single-view warp K5. Each kernel's wrapper takes its plain PyTorch version
+for CPU tensors and launches the kernel (or raises) for CUDA tensors.
+Nothing here imports JAX or the JAX package; ``interop.from_jax`` reads the
+JAX package's variables as numpy arrays, and the file formats and datasets
+are the port's own ``io`` and ``data`` packages.
 """
 
 __version__ = "0.1.0"

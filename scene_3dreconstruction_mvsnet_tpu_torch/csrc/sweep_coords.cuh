@@ -185,17 +185,4 @@ __device__ __forceinline__ void sample_at(const T* img, float ix, float iy, int 
   }
 }
 
-// The warped sample of one group of 8 channels: reference pixel (x, y) on the
-// plane at depth dep. The sweep-variance kernel samples each source view with
-// pixel_ray, plane_coord and sample_at, the single-view warp kernel with this
-// composition of the same three, so the two agree bit for bit.
-template <typename T>
-__device__ __forceinline__ void warp_sample(const T* img, const float* __restrict__ hm, int x, int y, float dep,
-                                            float inv_half_w, float inv_half_h, int H, int W, int C,
-                                            float (&acc)[kGroup]) {
-  float ix, iy;
-  sweep_sample_coord(hm, static_cast<float>(x), static_cast<float>(y), dep, inv_half_w, inv_half_h, W, H, ix, iy);
-  sample_at(img, ix, iy, H, W, C, acc);
-}
-
 }  // namespace sweep

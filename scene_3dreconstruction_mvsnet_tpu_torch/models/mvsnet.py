@@ -40,7 +40,8 @@ class MVSNet(nn.Module):
       dtype: compute dtype of the conv stacks and of the features the sweep
         samples; None is f32, ``torch.bfloat16`` the fast path. Parameters
         stay f32 and are cast per conv. The sweep accumulates in f32 and the
-        regression runs in f32 whatever the dtype.
+        regression runs in f32 whatever the dtype (at eval on the card the
+        regression kernel converts the logits as it reads them).
       fused_conv0: with ``dtype=torch.bfloat16``, run CostRegNet's conv0 +
         BatchNorm + ReLU through the fused kernel K4 at eval (the JAX
         module's ``pallas_conv0``); training and f32 keep the module conv0.
@@ -79,10 +80,13 @@ class MVSNet(nn.Module):
         # Step 3: 3D U-Net -> [B, D, h, w] logits.
         cost_reg = self.cost_regularization(volume)[..., 0]
 
-        # Step 4: softmax regression + confidence, in f32; the kernel is
-        # inference-only, training takes the differentiable plain version.
-        regress = regress_depth_and_confidence if self.training else softmax_regression
-        depth, confidence = regress(cost_reg.float(), depth_values)
+        # Step 4: softmax regression + confidence, in f32. The kernel is
+        # inference-only and reads the logits in the compute dtype (no cast
+        # before it); training takes the differentiable plain version.
+        if self.training:
+            depth, confidence = regress_depth_and_confidence(cost_reg.float(), depth_values)
+        else:
+            depth, confidence = softmax_regression(cost_reg, depth_values)
         return {"depth": depth, "photometric_confidence": confidence}
 
 

@@ -4,9 +4,8 @@ A CUDA C++ kernel lives in ``csrc/<name>.cu`` behind a plain C interface. At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``<repo>/build/kernels/<name>-<hash>.so`` and loaded with ``ctypes``; the hash
 covers the source, the ``csrc/*.cuh`` headers it includes and the flags, so an
-edited source or shared header rebuilds. Triton kernels
-are compiled by Triton at their first launch. Nothing here is built or
-imported from a GPU toolchain when the module is imported.
+edited source or shared header rebuilds. Nothing here is built or imported
+from a GPU toolchain when the module is imported.
 """
 
 from __future__ import annotations

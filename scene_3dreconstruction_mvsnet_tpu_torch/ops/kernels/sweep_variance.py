@@ -56,20 +56,26 @@ def _library() -> ctypes.CDLL:
 
 def launch_geometry(V: int, D: int, H: int, W: int, C: int, sm_count: int = SM_COUNT) -> dict:
     """K1's launch for one sample: ``grid`` (blocks of ``threads`` (pixel,
-    channel group) threads, times chunks of ``d_chunk`` planes) and whether
-    the 4 lanes of a pixel ``share_coords`` (C = 32 and V <= 5, every path of
-    the model; any other V and C take the general build). The chunk is
-    MAX_CHUNK planes, halved down to MIN_CHUNK while the grid would give the
-    card's SMs fewer than 8 blocks each."""
+    channel group) threads, times chunks of ``d_chunk`` planes, from
+    ``plane_chunk``) and whether the 4 lanes of a pixel ``share_coords``
+    (C = 32 and V <= 5, every path of the model; any other V and C take the
+    general build)."""
     if V < 1:
         raise ValueError(f"the sweep kernel takes at least 1 view, got {V}")
     pixel_blocks = math.ceil(H * W * (C // 8) / THREADS)
+    chunk = plane_chunk(pixel_blocks, D, sm_count)
+    return {"threads": THREADS, "d_chunk": chunk, "grid": (pixel_blocks, math.ceil(D / chunk)),
+            "share_coords": C == 32 and V <= 5}
+
+
+def plane_chunk(pixel_blocks: int, D: int, sm_count: int = SM_COUNT) -> int:
+    """Planes a thread walks when ``pixel_blocks`` blocks cover the pixels:
+    MAX_CHUNK, halved down to MIN_CHUNK while the grid would give the card's
+    SMs fewer than 8 blocks each, and at most D."""
     chunk = MAX_CHUNK
     while chunk > MIN_CHUNK and pixel_blocks * math.ceil(D / chunk) < 8 * sm_count:
         chunk //= 2
-    chunk = min(chunk, D)
-    return {"threads": THREADS, "d_chunk": chunk, "grid": (pixel_blocks, math.ceil(D / chunk)),
-            "share_coords": C == 32 and V <= 5}
+    return min(chunk, D)
 
 
 def homography_terms(proj_matrices: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,8 @@ REFUSED = {
     "--debug_MVSnet": "the debug dumps are not ported yet",
     "--img_cache": "the decoded-image cache is not ported yet",
 }
+# --mode value -> why the port refuses it
+REFUSED_MODES = {"profile": "profile mode is not ported yet"}
 
 
 class _Refuse(argparse.Action):
@@ -44,9 +46,17 @@ class _Refuse(argparse.Action):
         parser.error(f"{option_string} is not supported by the PyTorch port: {REFUSED[option_string]}")
 
 
+class _Mode(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        if values in REFUSED_MODES:
+            parser.error(f"{option_string} {values} is not supported by the PyTorch port: {REFUSED_MODES[values]}")
+        setattr(namespace, self.dest, values)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MVSNet trainer, PyTorch/CUDA port")
-    p.add_argument("--mode", default="train", choices=["train", "test"])
+    p.add_argument("--mode", default="train", choices=["train", "test", "profile"], action=_Mode)
+    p.add_argument("--model", default="mvsnet", help="select model (accepted, as train.py; MVSNet is the one model)")
     p.add_argument("--dataset", default="dtu_yao", choices=["dtu_yao", "blender"])
     p.add_argument("--trainpath", default="", help="train datapath")
     p.add_argument("--testpath", help="test datapath (defaults to trainpath)")

@@ -1,5 +1,5 @@
 """The port's Hopper kernels against their plain PyTorch versions. They need
-an NVIDIA GPU (and nvcc / triton): marked ``cuda``, they skip elsewhere.
+an NVIDIA GPU (and nvcc): marked ``cuda``, they skip elsewhere.
 The machine with the card has no JAX, which tests/conftest.py imports, so
 this file imports nothing of JAX and runs there with
 ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``."""
@@ -116,21 +116,69 @@ def test_sweep_variance_kernel_matches_plain(cuda, extra_views, C, B, rot_deg, i
     assert (out.float() - ref).abs().max().item() <= tol * scale
 
 
-def test_softmax_regression_kernel_matches_plain(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    cost = torch.randn((2, 192, 20, 36), generator=gen, device=cuda) * 3.0
-    dv = torch.linspace(425.0, 905.0, 192, device=cuda)[None].repeat(2, 1)
+def _logits(cuda, B, D, H, W, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    cost = (torch.randn((B, D, H, W), generator=gen, device=cuda) * 3.0).to(dtype)
+    return cost, torch.linspace(425.0, 905.0, D, device=cuda)[None].repeat(B, 1)
+
+
+def _check_regression(cost, dv, depth, conf):
+    """K2's maps against the plain path on the logits in f32: depth within
+    1e-4 x the depth range; confidence within 1e-5 except where the expected
+    index lies within the two paths' depth disagreement (plus 1e-4) of an
+    integer, where its truncation may go either way."""
+    D = dv.shape[1]
+    ref_depth, ref_conf = regress_depth_and_confidence(cost.float(), dv)
+    d_diff = (depth - ref_depth).abs()
+    assert d_diff.max().item() <= 1e-4 * 480.0
+    e_idx = (ref_depth - 425.0) * ((D - 1) / 480.0)
+    near_int = (e_idx - e_idx.round()).abs() < d_diff * ((D - 1) / 480.0) + 1e-4
+    assert (~near_int).any()
+    assert (conf - ref_conf).abs()[~near_int].max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D,H,W", [(2, 192, 20, 36), (1, 5, 13, 9), (2, 200, 7, 33), (1, 192, 9, 37)])
+def test_softmax_regression_kernel_matches_plain(cuda, B, D, H, W, dtype):
+    """K2 on f32 and bf16 logits against the plain path; the sizes cut the
+    64-pixel tiles raggedly, odd H*W takes the element-wise staging, and D
+    is not a multiple of the 4 slices."""
+    cost, dv = _logits(cuda, B, D, H, W, dtype)
     before = k2.LAUNCHES
     depth, conf = k2.softmax_regression(cost, dv)
     torch.cuda.synchronize()
-    assert k2.LAUNCHES == before + 1
-    ref_depth, ref_conf = regress_depth_and_confidence(cost, dv)
-    d_diff = (depth - ref_depth).abs()
-    assert d_diff.max().item() <= 1e-4 * 480.0
-    # truncation of the expected index may differ where it sits on an integer
-    e_idx = (ref_depth - 425.0) * (191 / 480.0)
-    near_int = (e_idx - e_idx.round()).abs() < d_diff * (191 / 480.0) + 1e-4
-    assert (conf - ref_conf).abs()[~near_int].max().item() <= 1e-5
+    assert k2.LAUNCHES == before + 1 and depth.shape == conf.shape == (B, H, W)
+    _check_regression(cost, dv, depth, conf)
+
+
+@pytest.mark.parametrize("B,D,H,W", [(2, 192, 20, 36), (1, 5, 13, 9), (2, 200, 7, 33)])
+def test_softmax_regression_kernel_bf16_equals_f32_bits(cuda, B, D, H, W):
+    """bf16 logits and the same values in f32 go through the same f32
+    arithmetic in the same order: the same bits."""
+    cost, dv = _logits(cuda, B, D, H, W, torch.bfloat16)
+    got = k2.softmax_regression(cost, dv)
+    want = k2.softmax_regression(cost.float(), dv)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(20, 36), (13, 9)])
+def test_softmax_regression_kernel_takes_strided_logits(cuda, H, W, dtype):
+    """Logits strided over B and D (every other sample, planes 1..D of a
+    larger volume; 16-byte aligned rows at 20 x 36, element-wise staging at
+    13 x 9) give the bits of their contiguous copy; pixels that are not
+    contiguous within a plane are refused."""
+    big, _ = _logits(cuda, 4, 195, H, W, dtype)
+    cost = big[::2, 1:193]
+    dv = torch.linspace(425.0, 905.0, 192, device=cuda)[None].repeat(2, 1)
+    got = k2.softmax_regression(cost, dv)
+    want = k2.softmax_regression(cost.contiguous(), dv)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _check_regression(cost, dv, *got)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.softmax_regression(big[:2, :192].transpose(2, 3), dv)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -305,21 +353,42 @@ def test_conv0_fused_kernel_matches_plain(cuda, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rot_deg", [0.0, 2.0, 25.0])
-def test_plane_sweep_warp_kernel_matches_plain(cuda, rot_deg, dtype):
+@pytest.mark.parametrize("C,D", [(32, 7), (16, 7), (32, 19)])
+def test_plane_sweep_warp_kernel_matches_plain(cuda, C, D, rot_deg, dtype):
     """K5 against the plain warp: equal in f32, within one bf16 ulp (0 is
-    expected: the kernel samples as K1-emit does) in bf16."""
+    expected: the kernel samples as K1-emit does) in bf16. C = 32 takes the
+    build whose 4 lanes split each step of 4 planes' coordinates, C = 16 the
+    general one; 7 and 19 planes end the plane chunks (4 planes at these
+    sizes) and the steps raggedly; the 25 degree rig leaves the image."""
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import plane_sweep_warp as k5
 
-    fea, projs, dv = _rig(24, 72, 32, 7, 2, rot_deg=rot_deg)
+    fea, projs, dv = _rig(24, 72, C, D, 2, rot_deg=rot_deg)
     src = torch.from_numpy(fea[1]).to(cuda, dtype)[None]
     proj = torch.from_numpy(projs).to(cuda)
     depth = torch.from_numpy(dv).to(cuda)[None]
     before = k5.LAUNCHES
     out = k5.plane_sweep_warp(src, proj[None, 1], proj[None, 0], depth)
     torch.cuda.synchronize()
-    assert k5.LAUNCHES == before + 1 and out.dtype == dtype and out.shape == (1, 7, 24, 72, 32)
+    assert k5.LAUNCHES == before + 1 and out.dtype == dtype and out.shape == (1, D, 24, 72, C)
     ref = warp_src_feature(src, proj[None, 1], proj[None, 0], depth)
     if dtype == torch.float32:
         assert (out - ref).abs().max().item() == 0.0
     else:
         assert bf16_ulps(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rot_deg", [2.0, 25.0])
+@pytest.mark.parametrize("C", [32, 16])
+def test_plane_sweep_warp_kernel_equals_k1_emit_warps(cuda, C, rot_deg, dtype):
+    """K5's volume of each source view equals, bit for bit, the warp K1
+    emits for that view from the same features."""
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import plane_sweep_warp as k5
+
+    fea, projs, dv = _rig(24, 72, C, 9, 4, rot_deg=rot_deg)
+    feats = torch.from_numpy(fea).to(cuda, dtype)
+    proj = torch.from_numpy(projs).to(cuda)
+    depth = torch.from_numpy(dv).to(cuda)
+    _, warps = k1.sweep_variance_cuda(feats, proj, depth, emit_warps=True)
+    for v in range(1, 4):
+        assert torch.equal(k5.plane_sweep_warp_cuda(feats[v], proj[v], proj[0], depth), warps[v - 1])

@@ -256,3 +256,20 @@ def test_train_cli_writes_a_reference_checkpoint(tmp_path, capsys):
     for flag in (["--pallas_sweep"], ["--plan_check", "raise"], ["--mode", "profile"]):
         with pytest.raises(SystemExit):
             train_cli.main(args + flag)
+
+
+@pytest.mark.parametrize("argv,reason", [([flag], why) for flag, why in train_cli.REFUSED.items()]
+                         + [(["--mode", mode], why) for mode, why in train_cli.REFUSED_MODES.items()]
+                         + [(["--model", "mvsnet"], None)])
+def test_train_cli_parser_refuses_with_reasons(capsys, argv, reason):
+    """train.py's flags that the port does not run, and --mode profile, are
+    refused with their reason; --model mvsnet (train.py's, unused) is
+    accepted."""
+    parser = train_cli.build_parser()
+    if reason is None:
+        args = parser.parse_args(argv)
+        assert args.model == "mvsnet" and args.mode == "train"
+        return
+    with pytest.raises(SystemExit):
+        parser.parse_args(argv)
+    assert f"{' '.join(argv)} is not supported by the PyTorch port: {reason}" in capsys.readouterr().err

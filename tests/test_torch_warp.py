@@ -57,3 +57,16 @@ def test_plane_sweep_warp_matches_jax_pallas_kernel(scene, tx, ty):
     want, valid = warp_src_feature_pallas(*(jnp.asarray(a) for a in (fea, src, ref, dv)), interpret=True)
     assert bool(valid)
     np.testing.assert_allclose(_port_warp(fea, src, ref, dv), np.asarray(want), atol=5e-4)
+
+
+@pytest.mark.parametrize("D,H,W,C", [(192, 216, 288, 32), (7, 24, 72, 32), (19, 24, 72, 16), (2, 5, 13, 8)])
+def test_plane_sweep_warp_launch_geometry(D, H, W, C):
+    """K5's launch covers every (pixel, channel group) and every plane with
+    no empty chunk, walks 16 planes per thread at the headline (whole steps
+    of 4 planes), and refuses a plane that 32-bit indices cannot address."""
+    g = k5.launch_geometry(D, H, W, C)
+    assert g["grid"][0] * g["threads"] >= H * W * (C // 8) > (g["grid"][0] - 1) * g["threads"]
+    assert g["d_chunk"] * g["grid"][1] >= D > (g["grid"][1] - 1) * g["d_chunk"]
+    assert g["d_chunk"] == min(D, 16 if (H, W) == (216, 288) else 4)
+    with pytest.raises(ValueError, match="2\\^31"):
+        k5.launch_geometry(D, 4096, 4096, 128)
