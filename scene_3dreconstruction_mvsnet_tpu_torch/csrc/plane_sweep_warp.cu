@@ -40,13 +40,12 @@ namespace {
 using sweep::kGroup;
 
 constexpr int kThreads = 256;
-// Chosen on the card by ops/kernels/probe.py (PERF.md, section 6): ptxas
-// gives the kernel 48-56 registers and no spills without a cap, so a cap of
-// 64 does not bind; caps of 40 and 32 spill and run 4-7 % slower, and two
-// planes per lane per step, or other plane chunks, move it by under 2 %.
+// Measured on the card (PERF.md, section 6): ptxas gives the kernel 48-56
+// registers and no spills without a cap, so a cap of 64 does not bind; caps
+// of 40 and 32 spill and run 4-7 % slower, and two planes per lane per step,
+// or other plane chunks, move it by under 2 %.
 constexpr int kMinBlocks = 4;  // blocks per SM: caps the registers at 64
 constexpr int kLanes = 4;      // lanes of a pixel that share the coordinates (C = 32)
-constexpr int kLaneSteps = 1;  // planes whose coordinate each of them computes per step
 
 // src [H, W, C], homography [12] (R row-major, then t) of src_proj @
 // inv(ref_proj), depth [D] -> out [D, H, W, C] in the source dtype. Block
@@ -79,21 +78,15 @@ plane_sweep_warp_kernel(const T* __restrict__ src, const float* __restrict__ hom
   if constexpr (kShare) {
     const unsigned quad = 0xFu << (threadIdx.x & 28);
     const int g = threadIdx.x & (kLanes - 1);
-    constexpr int kStep = kLanes * kLaneSteps;
-    for (int d = d0; d < d1; d += kStep) {
-      float own_ix[kLaneSteps], own_iy[kLaneSteps];  // planes d + j * kLanes + g
-#pragma unroll
-      for (int j = 0; j < kLaneSteps; ++j) {
-        own_ix[j] = own_iy[j] = 0.0f;
-        const int dj = d + j * kLanes + g;
-        if (dj < d1) {
-          sweep::plane_coord(ray, hm_s, __ldg(depth + dj), inv_half_w, inv_half_h, W, H, own_ix[j], own_iy[j]);
-        }
+    for (int d = d0; d < d1; d += kLanes) {
+      float own_ix = 0.0f, own_iy = 0.0f;  // plane d + g
+      if (d + g < d1) {
+        sweep::plane_coord(ray, hm_s, __ldg(depth + d + g), inv_half_w, inv_half_h, W, H, own_ix, own_iy);
       }
 #pragma unroll
-      for (int k = 0; k < kStep; ++k) {
-        const float ix = __shfl_sync(quad, own_ix[k / kLanes], k % kLanes, kLanes);
-        const float iy = __shfl_sync(quad, own_iy[k / kLanes], k % kLanes, kLanes);
+      for (int k = 0; k < kLanes; ++k) {
+        const float ix = __shfl_sync(quad, own_ix, k, kLanes);
+        const float iy = __shfl_sync(quad, own_iy, k, kLanes);
         if (d + k < d1) {
           float acc[kGroup];
           sweep::sample_at(img, ix, iy, H, W, C, acc);

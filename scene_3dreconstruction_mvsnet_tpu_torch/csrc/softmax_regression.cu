@@ -27,13 +27,9 @@
 // the 4 slices' sums in slice order and take the window's 4 planes from the
 // tile. The order of every sum is fixed by the tile geometry alone, which is
 // the same for both input dtypes, so bf16 logits give the same bits as the
-// same values in f32. D is not padded. The plain path's order stays: the max
-// first, then exp(x - max), here the hardware's ex2(x * log2 e) (__expf, whose
-// error grows with |x - max|: at the headline its maps are 2.4e-4 in depth
-// and 1.2e-7 in confidence from expf's, against tolerances of 4.8e-2 and
-// 1e-5), 11 % faster than expf: the per-logit instructions, not only the
-// bytes, set the time. The tile and slice counts and the exp were chosen on
-// the card by ops/kernels/probe.py (PERF.md, section 6).
+// same values in f32. D is not padded. The plain path's order and exp stay:
+// the max first, then expf(x - max). The tile and slice counts were chosen by
+// measuring on the card (PERF.md, section 6).
 
 #include <cstdint>
 
@@ -46,9 +42,6 @@ constexpr int kPixels = 32;  // pixels of a block
 constexpr int kSlices = 4;   // slices of D, each walked by one thread per pixel
 constexpr int kThreads = kPixels * kSlices;
 constexpr int kChunk = 16;   // bytes of one cp.async
-constexpr int kFastExp = 1;  // 1: exp(x) as the hardware's ex2(x * log2 e) (__expf); 0: expf, as the plain path
-
-__device__ __forceinline__ float exp_of(float x) { return kFastExp ? __expf(x) : expf(x); }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -113,7 +106,7 @@ softmax_regression_kernel(const T* __restrict__ cost, int64_t stride_b, int64_t 
   const float* dv = depth_values + static_cast<int64_t>(b) * D;
   float se = 0.0f, sd = 0.0f, si = 0.0f;
   for (int d = d0; d < d1; ++d) {
-    const float e = exp_of(to_f32(col[d * kPixels]) - m);
+    const float e = expf(to_f32(col[d * kPixels]) - m);
     se += e;
     sd = fmaf(e, __ldg(dv + d), sd);
     si = fmaf(e, static_cast<float>(d), si);
@@ -134,7 +127,7 @@ softmax_regression_kernel(const T* __restrict__ cost, int64_t stride_b, int64_t 
   // truncation of the clipped expected index, as the plain path's .long()
   const int idx = static_cast<int>(fminf(fmaxf(sum_i / sum, 0.0f), static_cast<float>(D - 1)));
   float mass = 0.0f;
-  for (int d = max(idx - 1, 0); d <= min(idx + 2, D - 1); ++d) mass += exp_of(to_f32(col[d * kPixels]) - m);
+  for (int d = max(idx - 1, 0); d <= min(idx + 2, D - 1); ++d) mass += expf(to_f32(col[d * kPixels]) - m);
   const int64_t out = static_cast<int64_t>(b) * HW + p0 + p;
   depth[out] = sum_d / sum;
   conf[out] = mass / sum;
@@ -167,8 +160,8 @@ int launch_vec(const void* cost, int64_t stride_b, int64_t stride_d, const void*
 
 // Plain C interface for ctypes. Pointers are device pointers; the caller has
 // checked shapes and dtypes, that the pixels of a plane are contiguous
-// (stride 1 over H*W), that D * 64 * sizeof(element) bytes fit in a block's
-// shared memory (MAX_PLANES in ops/kernels/softmax_regression.py), and sets
+// (stride 1 over H*W), that D * kPixels (32) * sizeof(element) bytes fit in a
+// block's shared memory (MAX_PLANES in ops/kernels/softmax_regression.py), and sets
 // vec only where the logits' address and both strides are multiples of 16
 // bytes. bf16 selects bf16 (1) or f32 (0) logits. Returns the cudaError_t of
 // the launch (0 on success).

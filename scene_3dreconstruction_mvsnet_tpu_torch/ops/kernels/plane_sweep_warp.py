@@ -37,11 +37,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    return bind(load_cuda_library("plane_sweep_warp"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a build of ``csrc/plane_sweep_warp.cu``."""
+    lib = load_cuda_library("plane_sweep_warp")
     lib.plane_sweep_warp_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

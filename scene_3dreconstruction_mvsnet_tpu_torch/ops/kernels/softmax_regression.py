@@ -39,11 +39,7 @@ MAX_PLANES = 1024  # a block's f32 tile of D x 32 pixels stays within 128 KB of 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    return bind(load_cuda_library("softmax_regression"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a build of ``csrc/softmax_regression.cu``."""
+    lib = load_cuda_library("softmax_regression")
     lib.softmax_regression_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

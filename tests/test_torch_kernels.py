@@ -141,7 +141,7 @@ def _check_regression(cost, dv, depth, conf):
 @pytest.mark.parametrize("B,D,H,W", [(2, 192, 20, 36), (1, 5, 13, 9), (2, 200, 7, 33), (1, 192, 9, 37)])
 def test_softmax_regression_kernel_matches_plain(cuda, B, D, H, W, dtype):
     """K2 on f32 and bf16 logits against the plain path; the sizes cut the
-    64-pixel tiles raggedly, odd H*W takes the element-wise staging, and D
+    32-pixel tiles raggedly, odd H*W takes the element-wise staging, and D
     is not a multiple of the 4 slices."""
     cost, dv = _logits(cuda, B, D, H, W, dtype)
     before = k2.LAUNCHES
