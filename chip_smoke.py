@@ -41,7 +41,21 @@ exit code is not 0):
              must agree), --serve on two scans and --debug_MVSnet 2; every
              file is checked, K4 must launch once per depth map and K5 once
              per dumped source view. The CLI's own output goes to
-             build/eval_smoke/eval_cli.log.
+             build/eval_smoke/eval_cli.log;
+  7. dtu     the legacy DTU CLI (``evaldtu_cli``, evalDTU.py's f32
+             configuration: 1200x1600 images cropped to 1184x1600, 5 views,
+             192 planes) on an 8-view ring tree in the legacy layout that
+             this script renders; every PFM, mask and the PLY are checked, K1
+             and K2 must launch once per view, view 0's maps are held against
+             the plain path on the card, and K1 and K2 are timed at this
+             shape (the CLI's output in build/dtu_smoke/evaldtu_cli.log);
+  8. train_extras  the rest of training through the port's Trainer at the
+             recipe (bf16) with MVSNet(refine=True): steps with a summary and
+             a --debug_MVSnet 2 dump each (the loss must fall, RefineNet must
+             get gradients, K1-emit, K3-terms, K3 and K5 must launch at their
+             per-step counts), the refine step's seconds, the BatchNorm
+             buffers with and without the dumps, profile mode (its Chrome
+             trace must name K1 and K2), and K5 at the dumps' shape.
 The kernels' JSON line, then {"ok": true, "device": {...}} close the output.
 
 There is no CPU fallback: without a CUDA device the script exits at once.
@@ -103,6 +117,11 @@ NO_LIBRARY = {  # kernels that no single PyTorch call computes
 
 # the eval phase: a 16-view ring acquisition at the headline resolution
 EVAL_VIEWS = 16
+# the dtu phase: evalDTU.py's legacy configuration on an 8-view ring at its
+# 1200x1600 images (cropped to 1184x1600, features 296x400)
+DTU_VIEWS, DTU_H, DTU_W = 8, 1200, 1600
+# the train_extras phase: Trainer steps (one an epoch) with --refine and dumps
+TRAIN_EXTRAS_STEPS = 5
 EVAL_DEPTH_TOL = 2e-2  # x depth range: --pallas_conv0 against the module conv0, as the JAX
 #                        package holds its pallas_conv0 model (tests/test_conv0_fused.py)
 
@@ -552,9 +571,28 @@ class RingScene:
                 for ref in range(n)]
 
     def write_tree(self, root: str, scans: list[str], ndepths: int) -> None:
-        """pair.txt, Cameras/XXXXXXXX_cam.txt (a depth range around the
-        plane's, in ``ndepths`` intervals) and
+        """The unified-eval layout: pair.txt, Cameras/XXXXXXXX_cam.txt (a
+        depth range around the plane's, in ``ndepths`` intervals) and
         Rectified/<scan>/rect_CXXX_L00.png for each scan (the same images)."""
+        import os
+
+        self._write(os.path.join(root, "Cameras"), os.path.join(root, "pair.txt"), ndepths,
+                    lambda v: [os.path.join(root, "Rectified", scan, f"rect_C{v:0>3}_L00.png") for scan in scans])
+
+    def write_legacy_tree(self, root: str, scan: str, ndepths: int) -> None:
+        """The legacy DTU layout that ``make_legacy_dtu_eval_tree(root, scan,
+        RingRig(n_views, (h, w)), ndepths)`` writes, with the same bytes:
+        Cameras/pair.txt, Cameras/XXXXXXXX_cam.txt with the full-resolution
+        intrinsics, and Rectified_raw/<scan>/rect_XXX_3_r5000.png (1-based)."""
+        import os
+
+        cams = os.path.join(root, "Cameras")
+        self._write(cams, os.path.join(cams, "pair.txt"), ndepths,
+                    lambda v: [os.path.join(root, "Rectified_raw", scan, f"rect_{v + 1:0>3}_3_r5000.png")])
+
+    def _write(self, cam_dir: str, pair_path: str, ndepths: int, image_paths) -> None:
+        """The pair file, each view's cam file and its render at each of
+        ``image_paths(view)``."""
         import os
 
         import numpy as np
@@ -566,34 +604,33 @@ class RingScene:
         lo, hi = float(min(d.min() for d in depths)), float(max(d.max() for d in depths))
         margin = 0.15 * (hi - lo) + 1.0
         depth_min, interval = lo - margin, (hi - lo + 2 * margin) / ndepths
-        os.makedirs(os.path.join(root, "Cameras"), exist_ok=True)
-        write_pair_file(os.path.join(root, "pair.txt"), self.pair_list())
+        os.makedirs(cam_dir, exist_ok=True)
+        write_pair_file(pair_path, self.pair_list())
         for v, (_, x_w, y_w) in enumerate(hits):
             lines = ["extrinsic", *(" ".join(f"{x:.8f}" for x in row) for row in ring_extrinsics(v, self.n_views)),
                      "", "intrinsic", *(" ".join(f"{x:.8f}" for x in row) for row in self.K),
                      "", f"{depth_min:.6f} {interval:.6f}"]
-            with open(os.path.join(root, "Cameras", f"{v:0>8}_cam.txt"), "w") as f:
+            with open(os.path.join(cam_dir, f"{v:0>8}_cam.txt"), "w") as f:
                 f.write("\n".join(lines) + "\n")
-            img = _texture(0.1 * x_w, 0.1 * y_w).astype(np.float32)
-            for scan in scans:
-                os.makedirs(os.path.join(root, "Rectified", scan), exist_ok=True)
-                save_image_u8(os.path.join(root, "Rectified", scan, f"rect_C{v:0>3}_L00.png"), np.dstack([img] * 3))
+            img = np.dstack([_texture(0.1 * x_w, 0.1 * y_w).astype(np.float32)] * 3)
+            for path in image_paths(v):
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                save_image_u8(path, img)
 
 
-def run_eval_cli(argv: list[str], log_path: Path, stdin_text: str | None = None) -> dict:
-    """``eval_cli.main(argv)`` with its output appended to ``log_path`` (and
-    ``stdin_text`` as its stdin); the log's tail is printed if it fails."""
+def run_cli(main, argv: list[str], log_path: Path, stdin_text: str | None = None) -> dict:
+    """``main(argv)`` (a CLI of the port) with its output appended to
+    ``log_path`` (and ``stdin_text`` as its stdin); the log's tail is printed
+    if it fails."""
     import contextlib
     import io
-
-    from scene_3dreconstruction_mvsnet_tpu_torch import eval_cli
 
     stdin = sys.stdin
     if stdin_text is not None:
         sys.stdin = io.StringIO(stdin_text)
     try:
         with open(log_path, "a") as log_file, contextlib.redirect_stdout(log_file):
-            return eval_cli.main(argv)
+            return main(argv)
     except BaseException:
         print(log_path.read_text()[-4000:], flush=True)
         raise
@@ -611,6 +648,7 @@ def phase_eval(repo: Path) -> dict[str, tuple[int, int, str]]:
     import numpy as np
     import torch
 
+    from scene_3dreconstruction_mvsnet_tpu_torch import eval_cli
     from scene_3dreconstruction_mvsnet_tpu_torch.io import read_cam_file, read_pfm, read_ply
     from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import conv0_fused as k4
@@ -648,8 +686,8 @@ def phase_eval(repo: Path) -> dict[str, tuple[int, int, str]]:
     for tag, extra in runs.items():
         k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = k5.LAUNCHES = 0
         t0 = time.perf_counter()
-        out = run_eval_cli(base + extra + ["--outdir", str(work / tag)], work / "eval_cli.log",
-                           "scan1\nscan2\nquit\n" if tag == "serve" else None)
+        out = run_cli(eval_cli.main, base + extra + ["--outdir", str(work / tag)], work / "eval_cli.log",
+                      "scan1\nscan2\nquit\n" if tag == "serve" else None)
         rep[tag] = {"wall_s": time.perf_counter() - t0, "out": out,
                     "launches": {"sweep_variance": k1.LAUNCHES, "softmax_regression": k2.LAUNCHES,
                                  "conv0_fused": k4.LAUNCHES, "plane_sweep_warp": k5.LAUNCHES}}
@@ -709,6 +747,146 @@ def phase_eval(repo: Path) -> dict[str, tuple[int, int, str]]:
     shutil.rmtree(work, ignore_errors=True)
     return {"conv0_fused": (rep["fused"]["launches"]["conv0_fused"], n, "depth map"),
             "plane_sweep_warp": (rep["debug"]["launches"]["plane_sweep_warp"], V - 1, "dumped source view")}
+
+
+def phase_dtu(repo: Path, gen) -> dict:
+    """Drive evaldtu_cli (``evalDTU.py``'s legacy configuration: f32, 1200 x
+    1600 images cropped to 1184 x 1600, 5 views, 192 planes) on an 8-view
+    legacy DTU tree of the inward ring that this script renders, with K1's
+    and K2's counts set to 0 before it and read after it; check every file,
+    hold view 0's maps against the plain path on the card, and time K1 and
+    K2 at this shape. Returns the launch counts and the kernels' numbers for
+    their rows."""
+    import shutil
+
+    import torch
+
+    from scene_3dreconstruction_mvsnet_tpu_torch import evaldtu_cli
+    from scene_3dreconstruction_mvsnet_tpu_torch.data import find_dataset_def
+    from scene_3dreconstruction_mvsnet_tpu_torch.eval.depth_gen import auto_depth_chunk
+    from scene_3dreconstruction_mvsnet_tpu_torch.io import read_pfm, read_ply
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import cost_volume_variance, regress_depth_and_confidence
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import softmax_regression as k2
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import sweep_variance as k1
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.softmax_regression import softmax_regression_cuda
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.sweep_variance import sweep_variance_cuda
+
+    dev = torch.device("cuda")
+    work = repo / "build" / "dtu_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    root = work / "dtu"
+    t0 = time.perf_counter()
+    RingScene(DTU_VIEWS, DTU_H, DTU_W).write_legacy_tree(str(root), "scan1", D)
+    (root / "test.txt").write_text("scan1\n")
+    model = random_init_(MVSNet(), torch.Generator().manual_seed(SEED))
+    ckpt = work / "model.ckpt"
+    torch.save({"model": {"module." + k: v for k, v in model.state_dict().items()}}, ckpt)
+    tree_s = time.perf_counter() - t0
+
+    # random weights: stage B's thresholds loosened as the eval phase's
+    argv = ["--testpath", str(root), "--testlist", str(root / "test.txt"), "--loadckpt", str(ckpt), "--outdir",
+            str(work / "out"), "--NviewGen", str(V), "--numdepth", str(D), "--interval_scale", "1.0",
+            "--photomask", "0.0", "--geomask", "1", "--condmask_pixel", "6.0", "--condmask_depth", "0.5",
+            "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = run_cli(evaldtu_cli.main, argv, work / "evaldtu_cli.log")
+    wall = time.perf_counter() - t0
+    launches = {"sweep_variance": k1.LAUNCHES, "softmax_regression": k2.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    n = DTU_VIEWS
+    scan = work / "out" / "dtu" / "scan1"
+    files = [scan / f"{kind}/{v:0>8}.pfm" for kind in ("depth_est", "confidence") for v in range(n)]
+    files += [scan / f"mask/{v:0>8}_{k}.png" for v in range(n) for k in ("photo", "geo", "final")]
+    files.append(work / "out" / "dtu" / "mvsnet001_l3.ply")
+    missing = [str(f) for f in files if not f.exists()]
+    if missing:
+        raise AssertionError(f"{len(missing)} evaldtu_cli outputs missing: {missing[:10]}")
+    points = int(read_ply(str(files[-1]))[0].shape[0])
+    a = out["stage_a"]
+    steady = a["seconds"][1:]
+    log("dtu", f"evaldtu_cli on {n} views of {DTU_H}x{DTU_W} (f32, V={V}, D={D}): wall {wall:.2f} s; kernel "
+               f"launches {launches}; stage A s/view {', '.join(f'{x:.4f}' for x in a['seconds'])} (views 2-{n}: "
+               f"mean {statistics.mean(steady):.4f}, median {statistics.median(steady):.4f}); forward's device span "
+               f"{statistics.median(a['device_ms'][1:]):.1f} ms (median after the first); stage A phases "
+               f"{', '.join(f'{k} {v:.3f} s' for k, v in a['phases'].items())}; stage B wall "
+               f"{out['stage_b'][0]['wall_s']:.3f} s, {points} PLY points; peak device memory {peak:.2f} GiB; "
+               f"tree made in {tree_s:.1f} s")
+    if launches != {"sweep_variance": n, "softmax_regression": n}:
+        raise AssertionError(f"K1 and K2 must launch once per evalDTU view ({n}): {launches}")
+    if points <= 0:
+        raise AssertionError("evaldtu_cli wrote an empty PLY")
+
+    # view 0's maps against the plain path on the card, from the same sample
+    sample = find_dataset_def("dtu_yao_eval")(str(root), str(root / "test.txt"), "test", V, D, 1.0)[0]
+    h, w = sample["imgs"].shape[1] // 4, sample["imgs"].shape[2] // 4
+    model = model.to(dev).eval()
+    with torch.inference_mode():
+        imgs = torch.from_numpy(sample["imgs"]).to(dev)
+        proj = torch.from_numpy(sample["proj_matrices"]).to(dev)
+        dv = torch.from_numpy(sample["depth_values"]).to(dev)
+        feats = model.feature(imgs).reshape(1, V, h, w, 32)
+        volume = cost_volume_variance(feats, proj[None], dv[None], depth_chunk=auto_depth_chunk((DTU_H, DTU_W), D))
+        cost = model.cost_regularization(volume)[..., 0].float()
+        del volume
+        ref_depth, ref_conf = (t[0] for t in regress_depth_and_confidence(cost, dv[None]))
+    depth = torch.from_numpy(read_pfm(str(scan / "depth_est" / "00000000.pfm"))[0].copy()).to(dev)
+    conf = torch.from_numpy(read_pfm(str(scan / "confidence" / "00000000.pfm"))[0].copy()).to(dev)
+    rng_ = (dv[-1] - dv[0]).item()
+    d_diff = (depth - ref_depth).abs()
+    # pixels whose truncated expected index may flip: the plain path's own
+    # expected index (not one read back from the depth: at 400-700 mm the
+    # f32 softmax's normalisation and the depth sum are each ~1e-3 of an
+    # index off) within the paths' disagreement plus INT_BAND of an integer
+    with torch.inference_mode():
+        prob = torch.softmax(cost, dim=1)[0]
+        e_idx = torch.einsum("dhw,d->hw", prob, torch.arange(D, device=dev, dtype=prob.dtype))
+    near_int = (e_idx - e_idx.round()).abs() < d_diff * (D - 1) / rng_ + INT_BAND
+    d_err, c_err = d_diff.max().item(), (conf - ref_conf).abs()[~near_int].max().item()
+    log("dtu", f"view 0 vs the plain path on the card: depth max|err| {d_err:.3e} vs {SLICE_DEPTH_TOL * rng_:.3e}; "
+               f"conf max|err| {c_err:.3e} vs {SLICE_CONF_ATOL:.0e}; {int(near_int.sum().item())} pixels excluded "
+               "near an integer index")
+    if not d_err <= SLICE_DEPTH_TOL * rng_ or not c_err <= SLICE_CONF_ATOL:
+        raise AssertionError("evaldtu_cli's depth map disagrees with the plain path")
+    del feats, cost, prob
+
+    # K1 and K2 at this shape, f32, beside their plain versions
+    rows = {}
+    with torch.inference_mode():
+        feats = torch.rand((V, h, w, 32), generator=gen, device=dev)
+        chunk = auto_depth_chunk((DTU_H, DTU_W), D)
+        k_ms, p_ms, _, dev_ms = timed_pair(
+            lambda: sweep_variance_cuda(feats, proj, dv),
+            lambda: cost_volume_variance(feats[None], proj[None], dv[None], depth_chunk=chunk),
+            iters=5, plain_iters=2, kernel="sweep_variance_kernel",
+        )
+        k1_bound = bound(feats.numel() * 4 + D * h * w * 32 * 4, sweep_flops(proj, dv, h, w, 32), "f32")
+        rows["sweep_variance"] = {"dtu_shape": f"[{V},{h},{w},32] f32 -> [{D},{h},{w},32] f32", "dtu_ms": k_ms,
+                                  "dtu_device_ms": dev_ms, "dtu_plain_ms": p_ms,
+                                  "dtu_bound_ms": k1_bound["bound_ms"], "dtu_bound_by": k1_bound["bound_by"],
+                                  "launches_dtu": launches["sweep_variance"]}
+        del feats
+        logits = torch.randn((1, D, h, w), generator=gen, device=dev) * 3.0
+        k2_ms, k2_plain, _, k2_dev = timed_pair(
+            lambda: softmax_regression_cuda(logits, dv[None]),
+            lambda: regress_depth_and_confidence(logits, dv[None]),
+            iters=20, plain_iters=5, kernel="softmax_regression_kernel",
+        )
+        k2_bound = bound(logits.numel() * 4 + 2 * h * w * 4, 5 * logits.numel(), "f32")
+        rows["softmax_regression"] = {"dtu_shape": f"[1,{D},{h},{w}] f32 -> 2x[1,{h},{w}] f32", "dtu_ms": k2_ms,
+                                      "dtu_device_ms": k2_dev, "dtu_plain_ms": k2_plain,
+                                      "dtu_bound_ms": k2_bound["bound_ms"], "dtu_bound_by": k2_bound["bound_by"],
+                                      "launches_dtu": launches["softmax_regression"]}
+    for name, r in rows.items():
+        log("dtu", f"{name} at {r['dtu_shape']}: kernel {r['dtu_ms']:.4f} ms (device {fmt_ms(r['dtu_device_ms'])}), "
+                   f"plain {r['dtu_plain_ms']:.4f} ms, bound {r['dtu_bound_ms']:.4f} ms ({r['dtu_bound_by']})")
+    shutil.rmtree(work, ignore_errors=True)
+    return rows
 
 
 def _texture(x, y):
@@ -1071,7 +1249,9 @@ def device_busy(step, batch) -> tuple[float, float] | None:
     return wall, busy / 1e3
 
 
-def phase_train(gen) -> dict[str, tuple[int, int, str]]:
+def phase_train(gen) -> tuple[dict[str, tuple[int, int, str]], float]:
+    """The recipe's steps through make_train_step; returns the launch counts
+    and the bf16 step's median seconds."""
     import torch
 
     from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
@@ -1157,7 +1337,166 @@ def phase_train(gen) -> dict[str, tuple[int, int, str]]:
         wall, dev_ms = busy
         log("train", f"bf16 step under torch.profiler: {wall:.3f} ms wall, {dev_ms:.3f} ms device busy, "
                      f"idle share {100 * (1 - dev_ms / wall):.1f} %")
-    return launches
+    return launches, median["bf16"]
+
+
+class PlaneSamples:
+    """PlaneScene's recipe batch as a dataset of its TB samples, for the
+    Trainer's loader (u8 images, as pack_u8_imgs leaves them)."""
+
+    def __init__(self) -> None:
+        self.batch = PlaneScene().batch()
+
+    def __len__(self) -> int:
+        return TB
+
+    def __getitem__(self, i: int) -> dict:
+        return {k: v[i] for k, v in self.batch.items()}
+
+
+def phase_train_extras(repo: Path, gen, plain_step_s: float) -> dict:
+    """The rest of training through the port's Trainer at the recipe, bf16,
+    with MVSNet(refine=True) on the train phase's analytic-plane samples:
+    TRAIN_EXTRAS_STEPS epochs of one step each with a summary and a
+    --debug_MVSnet 2 dump at every step (the counts set to 0 before and read
+    after), the refine step's seconds, one step with the dumps on and one
+    with them off from the same weights (the BatchNorm buffers must be
+    equal), then profile mode (2 warm-up and 2 traced eval steps, the counts
+    set to 0 before and read after), and K5 at the dumps' shape. Returns the
+    launch counts and K5's numbers for the kernels' rows."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import warp_src_feature
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import paired_grad as k3t
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import plane_sweep_warp as k5
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import softmax_regression as k2
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import sweep_variance as k1
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import warp_grad as k3
+    from scene_3dreconstruction_mvsnet_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    work = repo / "build" / "train_extras"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    samples = PlaneSamples()
+    init = random_init_(MVSNet(refine=True, dtype=torch.bfloat16).to(dev), gen).state_dict()
+
+    def trainer(tag: str, epochs: int, debug: int) -> Trainer:
+        model = MVSNet(refine=True, dtype=torch.bfloat16)
+        model.load_state_dict(init)
+        return Trainer(model, samples, samples, logdir=str(work / tag), epochs=epochs, lr=T_LR, lrepochs=T_LREPOCHS,
+                       batch_size=TB, summary_freq=1, save_freq=1000, seed=SEED, num_workers=0, debug_mvsnet=debug,
+                       device=dev)
+
+    steps = TRAIN_EXTRAS_STEPS
+    main = trainer("dumps", steps, 2)
+    torch.cuda.synchronize()
+    k1.LAUNCHES = k1.EMIT_LAUNCHES = k2.LAUNCHES = k3t.LAUNCHES = k3.LAUNCHES = k5.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run_cli(lambda _: main.train(), [], work / "trainer.log")
+    wall = time.perf_counter() - t0
+    launches = {"sweep_variance_emit": k1.EMIT_LAUNCHES, "paired_grad": k3t.LAUNCHES, "warp_grad": k3.LAUNCHES,
+                "plane_sweep_warp": k5.LAUNCHES, "sweep_variance (eval)": k1.LAUNCHES - k1.EMIT_LAUNCHES,
+                "softmax_regression (eval)": k2.LAUNCHES}
+    with open(work / "dumps" / "scalars.jsonl") as f:
+        losses = [r["loss"] for r in map(json.loads, f) if r["mode"] == "train"]
+    refine_grads = {n: p.grad.abs().max().item() for n, p in main.model.named_parameters()
+                    if n.startswith("refine_network.")}
+    dumps = [len(list((work / "dumps" / "debug_train" / f"step{i:06d}" / "debug").glob("warped_*.png")))
+             for i in range(steps)]
+    log("train_extras", f"Trainer, MVSNet(refine=True) bf16 at the recipe: {steps} steps with a summary and a "
+                        f"--debug_MVSnet 2 dump each in {wall:.2f} s; kernel launches {launches}; losses "
+                        f"{', '.join(f'{x:.4f}' for x in losses)}; warp dumps per step {dumps}; RefineNet's "
+                        f"largest |grad| per tensor {min(refine_grads.values()):.3e} to "
+                        f"{max(refine_grads.values()):.3e}")
+    want = {"sweep_variance_emit": steps * TB, "paired_grad": steps, "warp_grad": steps,
+            "plane_sweep_warp": steps * (TV - 1), "sweep_variance (eval)": steps * TB,
+            "softmax_regression (eval)": steps}
+    if launches != want:
+        raise AssertionError(f"the Trainer's steps, dumps and test passes launched {launches}, not {want}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps or not losses[-1] < losses[0]:
+        raise AssertionError(f"the refine loss on the repeated batch did not fall: {losses}")
+    if not min(refine_grads.values()) > 0:
+        raise AssertionError(f"a RefineNet parameter got no gradient: {refine_grads}")
+    if dumps != [(TV - 1) * 4 * 4] * steps:
+        raise AssertionError(f"each step must dump 4 planes x 4 channels of each source view: {dumps}")
+
+    # the refine step's seconds: the Trainer's own train step on the batch
+    seconds = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        float(main.train_step(samples.batch)["loss"])  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+    refine_s = statistics.median(seconds[1:])
+    log("train_extras", f"bf16 step with --refine: seconds {', '.join(f'{x:.4f}' for x in seconds)} (median after "
+                        f"the first {refine_s:.4f}) against the train phase's plain step {plain_step_s:.4f} "
+                        f"({100 * (refine_s / plain_step_s - 1):+.1f} %)")
+
+    # one step with the dumps on and one with them off, from the same weights
+    stats = {}
+    for tag, debug in (("one_dumps", 2), ("one_plain", 0)):
+        t = trainer(tag, 1, debug)
+        run_cli(lambda _: t.train(), [], work / "trainer.log")
+        stats[tag] = {k: v for k, v in t.model.state_dict().items() if "running" in k or "num_batches" in k}
+    same = all(torch.equal(v, stats["one_plain"][k]) for k, v in stats["one_dumps"].items())
+    log("train_extras", f"BatchNorm buffers after one step with the dumps and one without: "
+                        f"{'equal' if same else 'DIFFER'} ({len(stats['one_plain'])} buffers)")
+    if not same:
+        raise AssertionError("the train-time dumps changed the BatchNorm buffers")
+
+    # profile mode: eval steps traced into a Chrome trace
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    trace = run_cli(lambda _: main.profile(warmup_iters=2, profile_iters=2), [], work / "trainer.log")
+    prof_s = time.perf_counter() - t0
+    prof_launches = {"sweep_variance": k1.LAUNCHES, "softmax_regression": k2.LAUNCHES}
+    text = Path(trace).read_text()
+    named = {k: k in text for k in ("sweep_variance_kernel", "softmax_regression_kernel")}
+    log("train_extras", f"profile mode: 2 warm-up + 2 traced eval steps in {prof_s:.2f} s; kernel launches "
+                        f"{prof_launches}; trace {len(text) / 1e6:.1f} MB names {named}")
+    if prof_launches != {"sweep_variance": 4 * TB, "softmax_regression": 4} or not all(named.values()):
+        raise AssertionError(f"profile mode: K1 once per sample and K2 once per eval step, both in the trace: "
+                             f"{prof_launches}, {named}")
+
+    # K5 at the dumps' shape: one source view of the recipe
+    scene = PlaneScene()
+    proj = torch.from_numpy(np.stack([scene.proj(c) for c in (1, 2, 0)])).to(dev)
+    dv = T_DEPTH_MIN + T_INTERVAL * torch.arange(TD, device=dev, dtype=torch.float32)
+    h, w = TH // 4, TW // 4
+    with torch.inference_mode():
+        src = torch.rand((h, w, 32), generator=gen, device=dev).to(torch.bfloat16)
+        out = k5.plane_sweep_warp_cuda(src, proj[1], proj[0], dv)
+        ulps = bf16_ulps(out, warp_src_feature(src[None], proj[None, 1], proj[None, 0], dv[None])[0])
+        grid, taps = sweep_grid(proj[1], proj[0], dv, h, w)
+        src_nchw = src.float().permute(2, 0, 1)[None]
+        k_ms, p_ms, lib_ms, dev_ms = timed_pair(
+            lambda: k5.plane_sweep_warp_cuda(src, proj[1], proj[0], dv),
+            lambda: warp_src_feature(src[None], proj[None, 1], proj[None, 0], dv[None]),
+            iters=10, plain_iters=3, kernel="plane_sweep_warp_kernel",
+            library_fn=lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                             align_corners=False),
+        )
+    k5_bound = bound(src.numel() * 2 + TD * src.numel() * 2, 2 * 32 * taps, "f32")
+    log("train_extras", f"plane_sweep_warp (recipe, one view, bf16): {ulps:.3f} ulp from the plain warp (limit 1); "
+                        f"kernel {k_ms:.3f} ms (device {fmt_ms(dev_ms)}), plain {p_ms:.3f} ms, library (grid_sample, "
+                        f"f32) {lib_ms:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms ({k5_bound['bound_by']})")
+    if ulps > 1.0:
+        raise AssertionError("plane_sweep_warp disagrees with the plain warp at the recipe's shape")
+    shutil.rmtree(work, ignore_errors=True)
+    return {
+        "plane_sweep_warp": {"recipe_shape": f"[{h},{w},32] bf16 -> [{TD},{h},{w},32] bf16", "recipe_ms": k_ms,
+                             "recipe_device_ms": dev_ms, "recipe_plain_ms": p_ms, "recipe_library_ms": lib_ms,
+                             "recipe_bound_ms": k5_bound["bound_ms"], "recipe_bound_by": k5_bound["bound_by"],
+                             "recipe_max_ulp": ulps, "launches_train_dumps": launches["plane_sweep_warp"]},
+        **{k: {"launches_refine_train": launches[k]} for k in ("sweep_variance_emit", "paired_grad", "warp_grad")},
+        "softmax_regression": {"launches_profile": prof_launches["softmax_regression"]},
+    }
 
 
 def near_integer_index(depth_plain, depth_diff):
@@ -1288,12 +1627,17 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(gen) + phase_train_kernels(gen) + phase_eval_kernels(gen)
     launches = phase_slice(gen)  # K1 and K2 on the inference path
-    launches.update(phase_train(gen))  # K1-emit, K3-terms and K3 on the training path
+    train_launches, plain_step_s = phase_train(gen)  # K1-emit, K3-terms and K3 on the training path
+    launches.update(train_launches)
     launches.update(phase_eval(repo))  # K4 and K5 on the eval CLI's path
+    extra = phase_dtu(repo, gen)  # K1 and K2 on evalDTU.py's legacy path, f32 at 1184x1600
+    for kernel, more in phase_train_extras(repo, gen, plain_step_s).items():  # refine, dumps (K5), profile
+        extra.setdefault(kernel, {}).update(more)
     for row in rows:
         n, units, unit = launches[row["name"]]
         row["launches"] = n
         row["launches_per"] = f"{n / units:g} per {unit}"
+        row.update(extra.get(row["name"], {}))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "scene_3dreconstruction_mvsnet_tpu"))
     if leaked:

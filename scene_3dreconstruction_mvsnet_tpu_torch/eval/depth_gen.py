@@ -69,6 +69,21 @@ def _dump_depth_gen_debug(debug_dir, view, bits, ref_img, depth, confidence) -> 
                       np.clip(confidence * (confidence > 0.5), 0, 1))
 
 
+def auto_depth_chunk(img_res: tuple[int, int], numdepth: int, budget_elems: int = 100_000_000,
+                     batch_size: int = 1) -> int | None:
+    """The plain sweep's depth chunk that bounds each chunk's warped volumes
+    to ``budget_elems`` elements (B * Dc * h/4 * w/4 * 32): the largest
+    divisor of ``numdepth`` within the budget, or None when all planes fit.
+    The JAX package's ``auto_depth_chunk``; chunking is exact (the variance
+    is independent per plane), and the sweep kernel ignores it."""
+    h4 = (img_res[0] // 32) * 8  # the datasets crop to a multiple of 32; features are /4
+    w4 = (img_res[1] // 32) * 8
+    dc = max(1, budget_elems // (batch_size * h4 * w4 * 32))
+    if dc >= numdepth:
+        return None
+    return next(c for c in range(dc, 0, -1) if numdepth % c == 0)
+
+
 def save_depth(
     model,
     *,
@@ -211,10 +226,7 @@ def save_depth(
         if batch_idx == 0 and debug_bitmask:
             from ..utils.debug_dump import debug_forward
 
-            dbg_imgs = sample["imgs"]
-            if dbg_imgs.dtype == np.uint8:
-                dbg_imgs = dbg_imgs.astype(np.float32) / 255.0
-            debug_forward(model, dbg_imgs, sample["proj_matrices"], sample["depth_values"], debug_bitmask,
+            debug_forward(model, sample["imgs"], sample["proj_matrices"], sample["depth_values"], debug_bitmask,
                           outdir_acq)
             mark("debug_dump")
         imgs_b, projs_b, dv_b = sample["imgs"], sample["proj_matrices"], sample["depth_values"]

@@ -186,8 +186,8 @@ def fuse_reference_view(
     out, the compute on ``device``) -> photo_mask, geo_mask, final_mask
     (bool [H, W]), depth_est_averaged [H, W] and geo_mask_sum [H, W]."""
 
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)[None]
+    def dev(a):  # a copy: read_pfm's arrays are flipped views with negative strides
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32)).to(device)[None]
 
     with torch.inference_mode():
         photo, geo, final, depth_avg, geo_sum = _fuse_refs(

@@ -2,6 +2,7 @@ from .blocks import ConvBnReLU, ConvBnReLU3D, ConvTransposeBnReLU3D
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
 from .mvsnet import MVSNet, mvsnet_loss, random_init_
+from .refine_net import RefineNet
 
 __all__ = [
     "ConvBnReLU",
@@ -10,6 +11,7 @@ __all__ = [
     "CostRegNet",
     "FeatureNet",
     "MVSNet",
+    "RefineNet",
     "mvsnet_loss",
     "random_init_",
 ]

@@ -2,10 +2,11 @@
 CostRegNet -> softmax regression and photometric confidence; and its
 training loss.
 
-Counterpart of ``scene_3dreconstruction_mvsnet_tpu/models/mvsnet.py`` with
-``refine=False``. Inputs are channels-last as in the JAX module: imgs
-[B, V, H, W, 3] (view 0 = reference view), proj_matrices [B, V, 4, 4] (K@E
-at feature resolution, i.e. intrinsics / 4), depth_values [B, D].
+Counterpart of ``scene_3dreconstruction_mvsnet_tpu/models/mvsnet.py``,
+refinement head included (``refine``). Inputs are channels-last as in the JAX
+module: imgs [B, V, H, W, 3] (view 0 = reference view), proj_matrices
+[B, V, 4, 4] (K@E at feature resolution, i.e. intrinsics / 4), depth_values
+[B, D].
 
 Steps 2 and 4, and with ``fused_conv0`` step 3's first conv, go through the
 kernel wrappers (``ops/kernels``): CPU tensors take the plain PyTorch
@@ -29,12 +30,16 @@ from ..ops.paired_sweep import paired_cost_volume
 from ..ops.regression import regress_depth_and_confidence
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
+from .refine_net import RefineNet
 
 
 class MVSNet(nn.Module):
-    """MVSNet without the refinement head.
+    """MVSNet.
 
     Args:
+      refine: add the RefineNet residual head (``refine_network``), whose
+        output is ``refined_depth`` beside ``depth``; off by default, as in
+        the reference.
       depth_chunk: chunk size of the plain sweep's depth axis (bounds its
         memory on the CPU); the sweep kernel ignores it.
       dtype: compute dtype of the conv stacks and of the features the sweep
@@ -47,13 +52,14 @@ class MVSNet(nn.Module):
         module's ``pallas_conv0``); training and f32 keep the module conv0.
     """
 
-    def __init__(self, depth_chunk: int | None = None, dtype: torch.dtype | None = None,
+    def __init__(self, refine: bool = False, depth_chunk: int | None = None, dtype: torch.dtype | None = None,
                  fused_conv0: bool = False):
         super().__init__()
         self.depth_chunk = depth_chunk
         self.dtype = dtype
         self.feature = FeatureNet()
         self.cost_regularization = CostRegNet(fused_conv0=fused_conv0)
+        self.refine_network = RefineNet() if refine else None
 
     def forward(
         self, imgs: torch.Tensor, proj_matrices: torch.Tensor, depth_values: torch.Tensor
@@ -87,7 +93,10 @@ class MVSNet(nn.Module):
             depth, confidence = regress_depth_and_confidence(cost_reg.float(), depth_values)
         else:
             depth, confidence = softmax_regression(cost_reg, depth_values)
-        return {"depth": depth, "photometric_confidence": confidence}
+        outputs = {"depth": depth, "photometric_confidence": confidence}
+        if self.refine_network is not None:
+            outputs["refined_depth"] = self.refine_network(imgs[:, 0], depth, dtype)
+        return outputs
 
 
 def mvsnet_loss(depth_est: torch.Tensor, depth_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,9 @@ def make_train_step(
     """Return ``train_step(batch) -> aux``. batch: imgs [B, V, H, W, 3] (f32
     or u8), proj_matrices [B, V, 4, 4], depth_values [B, D], depth [B, h, w],
     mask [B, h, w]. aux: 'loss', the metric suite, 'depth_est' and
-    'photometric_confidence', on the device. The step updates the model's
+    'photometric_confidence', on the device. The loss is taken on
+    'refined_depth' when the model has the refinement head, the metrics and
+    'depth_est' on 'depth', as in the JAX step. The step updates the model's
     parameters and BatchNorm statistics and the optimizer in place, then
     advances the scheduler; each parameter's ``.grad`` keeps the step's
     gradient."""
@@ -66,7 +68,7 @@ def make_train_step(
         model.train()
         b = batch_to_device(batch, device)
         outputs = model(b["imgs"], b["proj_matrices"], b["depth_values"])
-        loss = mvsnet_loss(outputs["depth"], b["depth"], b["mask"])
+        loss = mvsnet_loss(outputs.get("refined_depth", outputs["depth"]), b["depth"], b["mask"])
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

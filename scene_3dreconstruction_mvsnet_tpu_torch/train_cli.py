@@ -33,12 +33,8 @@ REFUSED = {
     "--flat_costreg": "the flat block-Toeplitz layout exists for the TPU's tiles",
     "--multihost": "multi-device training is not ported yet",
     "--remat": "rematerialisation is not ported yet",
-    "--refine": "RefineNet is not ported yet",
-    "--debug_MVSnet": "the debug dumps are not ported yet",
     "--img_cache": "the decoded-image cache is not ported yet",
 }
-# --mode value -> why the port refuses it
-REFUSED_MODES = {"profile": "profile mode is not ported yet"}
 
 
 class _Refuse(argparse.Action):
@@ -46,17 +42,12 @@ class _Refuse(argparse.Action):
         parser.error(f"{option_string} is not supported by the PyTorch port: {REFUSED[option_string]}")
 
 
-class _Mode(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values in REFUSED_MODES:
-            parser.error(f"{option_string} {values} is not supported by the PyTorch port: {REFUSED_MODES[values]}")
-        setattr(namespace, self.dest, values)
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MVSNet trainer, PyTorch/CUDA port")
-    p.add_argument("--mode", default="train", choices=["train", "test", "profile"], action=_Mode)
+    p.add_argument("--mode", default="train", choices=["train", "test", "profile"],
+                   help="profile: trace eval steps with torch.profiler into <logdir>/profile/trace.json")
     p.add_argument("--model", default="mvsnet", help="select model (accepted, as train.py; MVSNet is the one model)")
+    p.add_argument("--refine", action="store_true", help="use the refine network")
     p.add_argument("--dataset", default="dtu_yao", choices=["dtu_yao", "blender"])
     p.add_argument("--trainpath", default="", help="train datapath")
     p.add_argument("--testpath", help="test datapath (defaults to trainpath)")
@@ -85,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="conv compute dtype (bfloat16 = the fast path)")
     p.add_argument("--depth_chunk", type=int, default=None,
                    help="plane-sweep depth chunk size of the plain path (CPU)")
+    p.add_argument("--debug_MVSnet", type=int, default=0,
+                   help="debug bitmask (the reference's bits): each summary step dumps the selected forward stages "
+                        "as PNGs under <logdir>/debug_train/step<N>/debug/")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     for flag in REFUSED:
         p.add_argument(flag, nargs="?", action=_Refuse, help=argparse.SUPPRESS)
@@ -124,12 +118,14 @@ def main(argv: list[str] | None = None) -> None:
     test_dataset = MVSDataset(args.testpath, args.testlist, "test", args.NtestViews,
                               args.numdepth, args.interval_scale, **common)
 
-    model = MVSNet(depth_chunk=args.depth_chunk, dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
+    model = MVSNet(refine=args.refine, depth_chunk=args.depth_chunk,
+                   dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
     trainer = Trainer(
         model, train_dataset, test_dataset,
         logdir=args.logdir, epochs=args.epochs, lr=args.lr, lrepochs=args.lrepochs,
         weight_decay=args.wd, batch_size=args.batch_size, summary_freq=args.summary_freq,
-        save_freq=args.save_freq, seed=seed, num_workers=args.num_workers, device=device,
+        save_freq=args.save_freq, seed=seed, num_workers=args.num_workers, debug_mvsnet=args.debug_MVSnet,
+        device=device,
     )
     if args.resume:
         trainer.resume()
@@ -140,6 +136,8 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.mode == "train":
         trainer.train()
+    elif args.mode == "profile":
+        trainer.profile()
     else:
         print("final", trainer.test())
 

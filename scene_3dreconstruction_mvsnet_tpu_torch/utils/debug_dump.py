@@ -36,19 +36,34 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
-@torch.inference_mode()
 def debug_forward(model, imgs, proj_matrices, depth_values, bitmask: int, outdir: str) -> None:
     """Run the eval forward of ``model`` (an MVSNet, on its device) stage by
     stage on one batch and dump the stages ``bitmask`` selects, for the
-    batch's first sample: imgs [B, V, H, W, 3] in [0, 1], proj_matrices
-    [B, V, 4, 4], depth_values [B, D] (arrays or tensors)."""
+    batch's first sample: imgs [B, V, H, W, 3] in [0, 1] (u8 images are
+    divided by 255, as the steps do), proj_matrices [B, V, 4, 4],
+    depth_values [B, D] (arrays or tensors).
+
+    BatchNorm uses its running statistics, as the JAX dump applies the model
+    with ``train=False``: a model in training mode (the Trainer's) is put in
+    eval mode for the dump and back after it, so the dump changes no
+    buffer."""
     bits = set(get_powers(bitmask))
     if not bits:
         return
-    dump_dir = os.path.join(outdir, "debug")
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            _dump(model, imgs, proj_matrices, depth_values, bits, os.path.join(outdir, "debug"))
+    finally:
+        model.train(was_training)
+
+
+def _dump(model, imgs, proj_matrices, depth_values, bits: set[str], dump_dir: str) -> None:
     device = next(model.parameters()).device
     dtype = model.dtype or torch.float32
-    imgs = torch.as_tensor(imgs, dtype=torch.float32).to(device)
+    imgs = torch.as_tensor(imgs).to(device)
+    imgs = imgs.float() / 255.0 if imgs.dtype == torch.uint8 else imgs.float()
     proj_matrices = torch.as_tensor(proj_matrices, dtype=torch.float32).to(device)
     depth_values = torch.as_tensor(depth_values, dtype=torch.float32).to(device)
     B, V, H, W, C = imgs.shape

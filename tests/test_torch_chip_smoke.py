@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from scene_3dreconstruction_mvsnet_tpu.data.synthetic import RingRig, make_eval_tree
+from scene_3dreconstruction_mvsnet_tpu.data.synthetic import RingRig, make_eval_tree, make_legacy_dtu_eval_tree
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -112,3 +112,19 @@ def test_bound_helpers_count_the_work(smoke):
     b = smoke.bound(3.35e9, 67e9, "f32")
     assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 1.0) < 1e-12
     assert smoke.bound(3.35e9, 67e12, "f32")["bound_by"] == "operations"
+
+
+def test_ring_scene_writes_make_legacy_dtu_eval_tree(smoke, tmp_path):
+    """RingScene.write_legacy_tree writes the files make_legacy_dtu_eval_tree
+    writes for a RingRig at 1200x1600: the pair and cam files byte for byte,
+    the same image pixels."""
+    smoke.RingScene(3, 1200, 1600).write_legacy_tree(str(tmp_path / "ours"), "scan1", 192)
+    make_legacy_dtu_eval_tree(str(tmp_path / "jax"), scan="scan1", rig=RingRig(n_views=3, img_hw=(1200, 1600)),
+                              ndepths=192)
+    for f in ["Cameras/pair.txt"] + [f"Cameras/{v:0>8}_cam.txt" for v in range(3)]:
+        assert (tmp_path / "ours" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    for v in range(3):
+        name = f"Rectified_raw/scan1/rect_{v + 1:0>3}_3_r5000.png"
+        want = np.asarray(Image.open(tmp_path / "jax" / name))
+        assert want.shape == (1200, 1600, 3) and want.std() > 0
+        np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "ours" / name)), want)

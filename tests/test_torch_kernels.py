@@ -392,3 +392,55 @@ def test_plane_sweep_warp_kernel_equals_k1_emit_warps(cuda, C, rot_deg, dtype):
     _, warps = k1.sweep_variance_cuda(feats, proj, depth, emit_warps=True)
     for v in range(1, 4):
         assert torch.equal(k5.plane_sweep_warp_cuda(feats[v], proj[v], proj[0], depth), warps[v - 1])
+
+
+def test_sweep_variance_kernel_at_the_legacy_dtu_shape(cuda):
+    """K1 in f32 at evaldtu_cli's shape: features [5, 296, 400, 32] (1184 x
+    1600 images) -> [192, 296, 400, 32] f32, 2.9 GB, whose element offsets
+    pass 2^29 and byte offsets 2^31; against the plain sweep at 1e-4 x
+    max|ref|."""
+    fea, projs, dv = _rig(296, 400, 32, 192, 5, rot_deg=2.0)
+    feats = torch.from_numpy(fea).to(cuda)[None]
+    proj = torch.from_numpy(projs).to(cuda)[None]
+    depth = torch.from_numpy(dv).to(cuda)[None]
+    before = k1.LAUNCHES
+    out = k1.sweep_variance(feats, proj, depth)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == before + 1 and out.dtype == torch.float32 and out.shape == (1, 192, 296, 400, 32)
+    ref = cost_volume_variance(feats, proj, depth, depth_chunk=24)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_softmax_regression_kernel_at_the_legacy_dtu_shape(cuda):
+    """K2 on f32 logits [1, 192, 296, 400] (118,400 pixels: 3,700 tiles of
+    32) against the plain path."""
+    cost, dv = _logits(cuda, 1, 192, 296, 400, torch.float32)
+    before = k2.LAUNCHES
+    depth, conf = k2.softmax_regression(cost, dv)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 1 and depth.shape == conf.shape == (1, 296, 400)
+    _check_regression(cost, dv, depth, conf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plane_sweep_warp_kernel_at_the_recipe_shape(cuda, dtype):
+    """K5 at the training recipe's dump shape: one source view [128, 160, 32]
+    -> [192, 128, 160, 32], equal to the plain warp in f32 and within one
+    bf16 ulp in bf16, and bit for bit K1-emit's warp of that view."""
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import plane_sweep_warp as k5
+
+    fea, projs, dv = _rig(128, 160, 32, 192, 3, rot_deg=2.0)
+    feats = torch.from_numpy(fea).to(cuda, dtype)
+    proj = torch.from_numpy(projs).to(cuda)
+    depth = torch.from_numpy(dv).to(cuda)
+    before = k5.LAUNCHES
+    out = k5.plane_sweep_warp(feats[None, 1], proj[None, 1], proj[None, 0], depth[None])
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES == before + 1 and out.shape == (1, 192, 128, 160, 32)
+    ref = warp_src_feature(feats[None, 1], proj[None, 1], proj[None, 0], depth[None])
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() == 0.0
+    else:
+        assert bf16_ulps(out, ref) <= 1.0
+    _, warps = k1.sweep_variance_cuda(feats, proj, depth, emit_warps=True)
+    assert torch.equal(out[0], warps[0])

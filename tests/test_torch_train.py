@@ -153,8 +153,22 @@ def test_train_step_matches_jax(train_batch):
     within that one step (2 x lr); where the reference gradient is larger
     than the gradient tolerance and than 1e-5 (1000 x eps), so that its
     sign is certain, at 1e-2 x lr, which sees the update's direction."""
-    batch = train_batch
-    jmodel = jmodels.MVSNet()
+    _train_step_against_jax(train_batch, refine=False, runs=((torch.float64, 1e-3), (torch.float32, 0.1)))
+
+
+def test_refine_train_step_matches_jax(train_batch):
+    """test_train_step_matches_jax with the refinement head, in f64: the loss
+    is taken on ``refined_depth``, the metrics and ``depth_est`` on
+    ``depth``, and the refinement head's 12 parameters get their gradients
+    and updates with the others'."""
+    model = _train_step_against_jax(train_batch, refine=True, runs=((torch.float64, 1e-3),))
+    assert all(p.grad.abs().max() > 0 for n, p in model.named_parameters() if n.startswith("refine_network."))
+
+
+def _train_step_against_jax(batch, refine, runs):
+    """One train step of MVSNet(refine) in each (dtype, gradient tolerance)
+    of ``runs`` against the JAX package's; returns the last run's model."""
+    jmodel = jmodels.MVSNet(refine=refine)
     jvars = jax.device_get(
         jmodel.init(jax.random.PRNGKey(0), batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     )
@@ -167,8 +181,9 @@ def test_train_step_matches_jax(train_batch):
     jnew = export_torch_state_dict(new_state.variables)
     largest = max(np.abs(g).max() for g in jgrads.values())
 
-    for dtype, g_tol in ((torch.float64, 1e-3), (torch.float32, 0.1)):
-        model = load_jax_variables(MVSNet(dtype=dtype if dtype == torch.float64 else None), jvars).to(dtype)
+    for dtype, g_tol in runs:
+        model = load_jax_variables(MVSNet(refine=refine, dtype=dtype if dtype == torch.float64 else None),
+                                   jvars).to(dtype)
         opt = make_optimizer(model, LR)
         step = make_train_step(model, opt, make_scheduler(opt, "10:2", 100), "cpu")
         aux = step({k: v.astype(np.float64 if dtype == torch.float64 else np.float32) for k, v in batch.items()})
@@ -177,7 +192,7 @@ def test_train_step_matches_jax(train_batch):
         np.testing.assert_allclose(aux["depth_est"].numpy(), np.asarray(jaux["depth_est"]),
                                    atol=1e-3 * float(np.ptp(batch["depth_values"])))
         params = dict(model.named_parameters())
-        assert len(params) == 55  # 23 in FeatureNet, 32 in CostRegNet
+        assert len(params) == 55 + 12 * refine  # 23 in FeatureNet, 32 in CostRegNet, 12 in RefineNet
         for name, p in params.items():
             g, want = p.grad.double().numpy(), jgrads["module." + name]
             new, want_new = p.detach().double().numpy(), jnew["module." + name]
@@ -196,6 +211,7 @@ def test_train_step_matches_jax(train_batch):
                 want = jnew["module." + name]
                 np.testing.assert_allclose(buf.double().numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max(),
                                            err_msg=name)
+    return model
 
 
 def test_checkpoint_round_trip(tmp_path, rng, variables):
@@ -253,22 +269,32 @@ def test_train_cli_writes_a_reference_checkpoint(tmp_path, capsys):
 
     train_cli.main(args + ["--resume", "--epochs", "1"])  # nothing left to train
     assert "Resuming from" in capsys.readouterr().out
-    for flag in (["--pallas_sweep"], ["--plan_check", "raise"], ["--mode", "profile"]):
+    for flag in (["--pallas_sweep"], ["--plan_check", "raise"], ["--remat"]):
         with pytest.raises(SystemExit):
             train_cli.main(args + flag)
 
 
+ACCEPTED = [  # train.py's flags that the port runs, once refused
+    (["--model", "mvsnet"], {"model": "mvsnet"}),
+    (["--refine"], {"refine": True}),
+    (["--debug_MVSnet", "2"], {"debug_MVSnet": 2}),
+    (["--mode", "profile"], {"mode": "profile"}),
+]
+
+
 @pytest.mark.parametrize("argv,reason", [([flag], why) for flag, why in train_cli.REFUSED.items()]
-                         + [(["--mode", mode], why) for mode, why in train_cli.REFUSED_MODES.items()]
-                         + [(["--model", "mvsnet"], None)])
+                         + [(argv, None) for argv, _ in ACCEPTED])
 def test_train_cli_parser_refuses_with_reasons(capsys, argv, reason):
-    """train.py's flags that the port does not run, and --mode profile, are
-    refused with their reason; --model mvsnet (train.py's, unused) is
-    accepted."""
+    """train.py's flags that the port does not run are refused with their
+    reason; --model mvsnet (train.py's, unused), --refine, --debug_MVSnet and
+    --mode profile are accepted."""
     parser = train_cli.build_parser()
     if reason is None:
-        args = parser.parse_args(argv)
-        assert args.model == "mvsnet" and args.mode == "train"
+        args = vars(parser.parse_args(argv))
+        want = next(w for a, w in ACCEPTED if a == argv)
+        assert {k: args[k] for k in want} == want
+        assert all(args[k] == parser.get_default(k) for k in ("mode", "model", "refine", "debug_MVSnet")
+                   if k not in want)
         return
     with pytest.raises(SystemExit):
         parser.parse_args(argv)
