@@ -71,7 +71,18 @@ exit code is not 0):
              count and the BatchNorm buffers against the plain step's; the
              input stage with and without prefetch_to_device) and the eval
              phase (stage A with --img_cache, cold and warm: its loader wait,
-             the maps bit-equal to the uncached run's).
+             the maps bit-equal to the uncached run's);
+ 10. sweep   the cost volume's depth planes split over the ranks of a sweep
+             group (MVSNet(volume_sharding=...)), gloo ranks sharing the
+             card: the headline request on 2 ranks (data=1 x sweep=2, 96
+             planes each; f32, and bf16 with K4) held against the
+             one-process forward, K1, K4 and K2 once per request on each
+             rank; the recipe's step through make_sharded_train_step(mesh=)
+             on 4 ranks (data=2 x sweep=2; f32 once, bf16 three times) held
+             against the one-process B=4 step, K1-emit twice and K3-terms
+             and K3 once per step on each rank, the parameters and
+             BatchNorm buffers equal on all ranks; per rank the seconds (no
+             speed figure over gloo) and the peak memory.
 The kernels' JSON line, then {"ok": true, "device": {...}} close the output.
 
 There is no CPU fallback: without a CUDA device the script exits at once.
@@ -148,6 +159,12 @@ REMAT_STEPS, NCCL_STEPS, GLOO_STEPS = 4, 8, 3
 # BatchNorm backward, with cancellation)
 GLOO_F32_GRAD_TOL = 1e-3
 GLOO_LOSS_RTOL = {"f32": 1e-5, "bf16": 1e-3}
+# the sweep phase: requests a rank serves after its warm-up, and the split
+# f32 step's loss against one process's (the JAX
+# package's bound for its data x sweep step, tests/test_parallel.py); the
+# gradients as the parallel phase's
+SWEEP_REQUESTS, SWEEP_LOSS_RTOL = 3, 1e-4
+RANK_TIMEOUT_S = 600  # a spawned gloo rank's time limit
 FUSE_RTOL = 1e-6  # depth_est_averaged, sharded against serial (tests/test_parallel.py's bound)
 EVAL_DEPTH_TOL = 2e-2  # x depth range: --pallas_conv0 against the module conv0, as the JAX
 #                        package holds its pallas_conv0 model (tests/test_conv0_fused.py)
@@ -1663,6 +1680,37 @@ def _gloo_rank(rank: int, port: int, work: str) -> None:
     dist.destroy_process_group()
 
 
+def grad_err(got: dict, ref: dict) -> tuple[float, str, dict]:
+    """max|got - ref| over the tensors in units of the largest |ref|, the
+    tensor where it is reached, and each tensor's error in its own max."""
+    largest = max(g.abs().max().item() for g in ref.values())
+    errs = {n: (got[n] - g).abs().max().item() for n, g in ref.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst] / largest, worst, {n: errs[n] / max(g.abs().max().item(), 1e-30) for n, g in ref.items()}
+
+
+def run_ranks(target, world: int, work: Path, *args) -> None:
+    """Start ``target(rank, port, work, *args)`` in ``world`` spawned
+    processes (they share cuda:0 over gloo) and wait for them; a rank that
+    fails or is still running after RANK_TIMEOUT_S fails the phase."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, str(work), *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"a gloo rank of {target.__name__} failed: exit codes {[p.exitcode for p in procs]}")
+
+
 def _free_port() -> int:
     import socket
 
@@ -1677,7 +1725,6 @@ def phase_parallel(repo: Path, gen, initial: dict, plain_step_s: float, scan_map
     plain step, make_sharded_infer and fuse_scan over [cuda:0, cuda:0]
     against their unsharded runs; the counts set to 0 before each run and
     read after it. Returns the launch counts for the kernels' rows."""
-    import multiprocessing
     import shutil
 
     import numpy as np
@@ -1715,29 +1762,9 @@ def phase_parallel(repo: Path, gen, initial: dict, plain_step_s: float, scan_map
         want[tag] = {"loss": loss, "grads": {n: p.grad.float().cpu() for n, p in ref.named_parameters()}}
         del ref, opt
     torch.cuda.empty_cache()
-    ctx = multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_gloo_rank, args=(r, port, str(work))) for r in range(2)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=600)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"a gloo rank failed: exit codes {[p.exitcode for p in procs]}")
+    run_ranks(_gloo_rank, 2, work)
     ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
-
-    def grad_err(got: dict, ref: dict) -> tuple[float, str, dict]:
-        """max|got - ref| over the tensors in units of the largest |ref|, the
-        tensor where it is reached, and each tensor's error in its own max."""
-        largest = max(g.abs().max().item() for g in ref.values())
-        errs = {n: (got[n] - g).abs().max().item() for n, g in ref.items()}
-        worst = max(errs, key=errs.get)
-        return errs[worst] / largest, worst, {n: errs[n] / max(g.abs().max().item(), 1e-30) for n, g in ref.items()}
 
     floor, floor_at, _ = grad_err(want["bf16"]["grads"], want["f32"]["grads"])
     limits = {"f32": GLOO_F32_GRAD_TOL, "bf16": floor}
@@ -1855,6 +1882,238 @@ def phase_parallel(repo: Path, gen, initial: dict, plain_step_s: float, scan_map
     if not masks_equal or not depth_off <= FUSE_RTOL or len(split) != len(serial):
         raise AssertionError("the sharded filter disagrees with the serial one")
     shutil.rmtree(work, ignore_errors=True)
+    return extra
+
+
+def _sweep_rank(rank: int, port: int, work: str, world: int) -> None:
+    """One rank of the sweep phase, sharing cuda:0 with the others over gloo.
+    With 2 ranks (data=1 x sweep=2): the headline request (96 planes a rank)
+    in f32 and in bf16 with K4, SWEEP_REQUESTS times each after a warm-up;
+    with 4 (data=2 x sweep=2): the recipe's step through
+    make_sharded_train_step(mesh=) (SGD), once in f32 and GLOO_STEPS times in
+    bf16. The counts are set to 0 before each request or step and read after
+    it; everything goes to ``work/sweep<world>_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import conv0_fused as k4
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import paired_grad as k3t
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import softmax_regression as k2
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import sweep_variance as k1
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import warp_grad as k3
+    from scene_3dreconstruction_mvsnet_tpu_torch.parallel import (
+        initialize_multihost, make_mesh, make_sharded_train_step, volume_sharding,
+    )
+    from scene_3dreconstruction_mvsnet_tpu_torch.train import make_scheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo", local_rank=0, timeout_s=300)
+    dev = torch.device("cuda", 0)
+    task = torch.load(Path(work) / f"sweep{world}.pt", weights_only=False)
+    mesh = make_mesh(data=world // 2, sweep=2)
+    split = volume_sharding(mesh)
+    out: dict = {"coords": (mesh.data_index, mesh.sweep_index)}
+    if world == 2:
+        for tag, dtype, fused in (("f32", None, False), ("bf16 fused conv0", torch.bfloat16, True)):
+            model = MVSNet(dtype=dtype, fused_conv0=fused, volume_sharding=split)
+            model.load_state_dict(task["state"])
+            infer = make_infer_step(model, dev)
+            planes = []
+            model.cost_regularization.register_forward_pre_hook(lambda m, args: planes.append(args[0].shape[1]))
+            infer(*task["request"])  # warm-up: cuDNN's picks, the gloo connections
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            planes.clear()
+            rec = {"seconds": [], "launches": [], "planes": planes}
+            for _ in range(SWEEP_REQUESTS):
+                k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = infer(*task["request"])
+                torch.cuda.synchronize()
+                rec["seconds"].append(time.perf_counter() - t0)
+                rec["launches"].append({"sweep_variance": k1.LAUNCHES, "conv0_fused": k4.LAUNCHES,
+                                        "softmax_regression": k2.LAUNCHES})
+            rec.update(depth=res["depth"].cpu(), conf=res["photometric_confidence"].cpu(),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            out[tag] = rec
+            del model, infer, res
+            torch.cuda.empty_cache()
+    else:
+        for tag, dtype, steps in (("f32", None, 1), ("bf16", torch.bfloat16, GLOO_STEPS)):
+            model = MVSNet(dtype=dtype, volume_sharding=split).to(dev)
+            model.load_state_dict(task["state"])
+            opt = torch.optim.SGD(model.parameters(), lr=T_LR)
+            step, shard_fn = make_sharded_train_step(model, opt, make_scheduler(opt, T_LREPOCHS, 1000), dev,
+                                                     mesh=mesh)
+            rows = shard_fn(task["batch"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"seconds": [], "launches": [], "rows": int(rows["imgs"].shape[0])}
+            for i in range(steps):
+                k1.LAUNCHES = k1.EMIT_LAUNCHES = k3t.LAUNCHES = k3.LAUNCHES = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(step(rows)["loss"])  # waits for the step
+                rec["seconds"].append(time.perf_counter() - t0)
+                rec["launches"].append({"sweep_variance_emit": k1.EMIT_LAUNCHES, "paired_grad": k3t.LAUNCHES,
+                                        "warp_grad": k3.LAUNCHES})
+                if i == 0:
+                    rec.update(loss=loss, grads={n: p.grad.float().cpu() for n, p in model.named_parameters()})
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["state"] = {k: v.cpu() for k, v in model.state_dict().items()}  # parameters and BatchNorm buffers
+            out[tag] = rec
+            del model, opt, step
+            torch.cuda.empty_cache()
+    torch.save(out, Path(work) / f"sweep{world}_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_sweep(repo: Path, gen, initial: dict) -> dict:
+    """The cost volume's depth planes split over a sweep group (the JAX
+    package's 'sweep' mesh axis), on gloo ranks sharing the one card: (a) the
+    headline request on 2 ranks (data=1 x sweep=2, 96 planes each) against
+    the one-process forward with the same weights, f32 and bf16 with K4;
+    (b) the recipe's step on 4 ranks (data=2 x sweep=2, the JAX package's
+    tests/test_parallel.py mesh) against the one-process B=4 step, f32 once
+    and bf16 GLOO_STEPS times. Seconds over gloo with the ranks sharing one
+    card are no speed figure. Returns the launch counts for the kernels'
+    rows."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.train import make_scheduler, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = repo / "build" / "sweep_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    extra: dict = {}
+    note = "(gloo ranks sharing one card: not a speed figure)"
+
+    # (a) the headline request, one process, then 2 sweep ranks
+    projs, dv = headline_rig(REF_CAMERAS[0])
+    imgs = torch.randint(0, 256, (1, V, H, W, 3), generator=torch.Generator().manual_seed(SEED + 2), dtype=torch.uint8)
+    request = (imgs, torch.from_numpy(projs)[None], torch.from_numpy(dv)[None])
+    state = random_init_(MVSNet().to(dev), gen).state_dict()
+    one = {}
+    for tag, dtype, fused in (("f32", None, False), ("bf16 fused conv0", torch.bfloat16, True)):
+        model = MVSNet(dtype=dtype, fused_conv0=fused)
+        model.load_state_dict(state)
+        infer = make_infer_step(model, dev)
+        infer(*request)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = infer(*request)
+        one[tag] = {"depth": res["depth"].cpu(), "conf": res["photometric_confidence"].cpu(),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del model, infer, res
+    torch.cuda.empty_cache()
+    torch.save({"state": {k: v.cpu() for k, v in state.items()}, "request": request}, work / "sweep2.pt")
+    t0 = time.perf_counter()
+    run_ranks(_sweep_rank, 2, work, 2)
+    ranks = [torch.load(work / f"sweep2_rank{r}.pt", weights_only=False) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    rng_ = DEPTH_MAX - DEPTH_MIN
+    floor_d = (one["bf16 fused conv0"]["depth"] - one["f32"]["depth"]).abs().max().item()
+    floor_c = (one["bf16 fused conv0"]["conf"] - one["f32"]["conf"]).abs().max().item()
+    limits = {"f32": (SLICE_DEPTH_TOL * rng_, SLICE_CONF_ATOL), "bf16 fused conv0": (floor_d, floor_c)}
+    want_launch = {"f32": {"sweep_variance": 1, "conv0_fused": 0, "softmax_regression": 1},
+                   "bf16 fused conv0": {"sweep_variance": 1, "conv0_fused": 1, "softmax_regression": 1}}
+    ok = True
+    for tag, (d_lim, c_lim) in limits.items():
+        w = one[tag]
+        got = ranks[0][tag]
+        d_diff = (got["depth"] - w["depth"]).abs()
+        near_int = near_integer_index(w["depth"], d_diff)
+        d_err = d_diff.max().item()
+        c_err = (got["conf"] - w["conf"]).abs()[~near_int].max().item()
+        same = all(torch.equal(r[tag]["depth"], got["depth"]) and torch.equal(r[tag]["conf"], got["conf"])
+                   for r in ranks)
+        log("sweep", f"headline request on 2 sweep ranks ({tag}) vs one process: depth max|err| {d_err:.3e} (limit "
+                     f"{d_lim:.3e}{', the one-process bf16 forward from its f32 forward' if tag != 'f32' else ''}), "
+                     f"conf max|err| {c_err:.3e} (limit {c_lim:.3e}; {int(near_int.sum().item())} pixels excluded "
+                     f"near an integer index); the ranks' outputs {'equal' if same else 'DIFFER'}; the one "
+                     f"process's peak device memory {w['peak_gib']:.2f} GiB")
+        ok = ok and d_err <= d_lim and c_err <= c_lim and same
+        for r, out in enumerate(ranks):
+            rec = out[tag]
+            log("sweep", f"  rank {r} (sweep index {out['coords'][1]}): K1 launches with D {rec['planes']} "
+                         f"(of {D}); launches per request {rec['launches']}; seconds per request "
+                         f"{', '.join(f'{x:.4f}' for x in rec['seconds'])} {note}; peak device memory "
+                         f"{rec['peak_gib']:.2f} GiB")
+            if any(c != want_launch[tag] for c in rec["launches"]) or rec["planes"] != [D // 2] * SWEEP_REQUESTS:
+                raise AssertionError(f"rank {r} ({tag}) must launch {want_launch[tag]} a request on {D // 2} planes")
+    if not ok:
+        raise AssertionError("the split headline forward disagrees with the one-process forward or across ranks")
+    extra["sweep_variance"] = {"launches_sweep_infer_per_rank_request": 1, "sweep_infer_planes_per_rank": D // 2}
+    extra["conv0_fused"] = {"launches_sweep_infer_per_rank_request": 1}
+    extra["softmax_regression"] = {"launches_sweep_infer_per_rank_request": 1}
+    log("sweep", f"(a) {spawn_s:.1f} s with the 2 processes' start")
+
+    # (b) the recipe's step: one process at B = 4, then data=2 x sweep=2
+    batch = PlaneScene().batch()
+    want = {}
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        ref = MVSNet(dtype=dtype).to(dev)
+        ref.load_state_dict(initial)
+        opt = torch.optim.SGD(ref.parameters(), lr=T_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(make_train_step(ref, opt, make_scheduler(opt, T_LREPOCHS, 1000), dev)(batch)["loss"])
+        want[tag] = {"loss": loss, "grads": {n: p.grad.float().cpu() for n, p in ref.named_parameters()},
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del ref, opt
+    torch.cuda.empty_cache()
+    torch.save({"state": initial, "batch": batch}, work / "sweep4.pt")
+    t0 = time.perf_counter()
+    run_ranks(_sweep_rank, 4, work, 4)
+    ranks = [torch.load(work / f"sweep4_rank{r}.pt", weights_only=False) for r in range(4)]
+    spawn_s = time.perf_counter() - t0
+
+    floor_g, floor_at, _ = grad_err(want["bf16"]["grads"], want["f32"]["grads"])
+    floor_loss = abs(want["bf16"]["loss"] - want["f32"]["loss"]) / abs(want["f32"]["loss"])
+    limits = {"f32": (SWEEP_LOSS_RTOL, GLOO_F32_GRAD_TOL), "bf16": (max(GLOO_LOSS_RTOL["bf16"], floor_loss), floor_g)}
+    ok = True
+    for tag, (l_lim, g_lim) in limits.items():
+        w = want[tag]
+        for r, out in enumerate(ranks):
+            got = out[tag]
+            err, at, _ = grad_err(got["grads"], w["grads"])
+            loss_off = abs(got["loss"] - w["loss"]) / abs(w["loss"])
+            ok = ok and loss_off <= l_lim and err <= g_lim
+            if r == 0:
+                log("sweep", f"recipe step on data=2 x sweep=2 ({tag}, SGD) vs one process at B={TB}, step 1: loss "
+                             f"{got['loss']:.6f} vs {w['loss']:.6f} (rtol {loss_off:.2e}, limit {l_lim:.2e}); "
+                             f"gradients max|err| {err:.2e} x the largest |g| (at {at}; limit {g_lim:.2e}"
+                             + (f", the one-process bf16 step's distance from its f32 step, at {floor_at})"
+                                if tag == "bf16" else ")") + f"; the one process's peak device memory (its first "
+                             f"step) {w['peak_gib']:.2f} GiB")
+    per_step = {"sweep_variance_emit": TB // 2, "paired_grad": 1, "warp_grad": 1}
+    same = all(torch.equal(v, out["bf16"]["state"][k]) for out in ranks[1:] for k, v in ranks[0]["bf16"]["state"].items())
+    for r, out in enumerate(ranks):
+        d_i, s_i = out["coords"]
+        log("sweep", f"  rank {r} (data {d_i}, sweep {s_i}; {out['bf16']['rows']} rows, {TD // 2} planes): bf16 "
+                     f"seconds per step {', '.join(f'{x:.4f}' for x in out['bf16']['seconds'])} {note}; launches per "
+                     f"step {out['bf16']['launches']}; peak device memory bf16 {out['bf16']['peak_gib']:.2f} GiB, "
+                     f"f32 {out['f32']['peak_gib']:.2f} GiB")
+        if any(c != per_step for c in out["bf16"]["launches"] + out["f32"]["launches"]):
+            raise AssertionError(f"rank {r}'s step must launch {per_step}")
+    log("sweep", f"parameters and BatchNorm buffers after {GLOO_STEPS} bf16 steps {'equal' if same else 'DIFFER'} on "
+                 f"all 4 ranks; (b) {spawn_s:.1f} s with the 4 processes' start")
+    if not ok or not same:
+        raise AssertionError("the data x sweep step disagrees with the one-process step or across its ranks")
+    for k, n in per_step.items():
+        extra.setdefault(k, {})["launches_sweep_train_per_rank_step"] = n
+    shutil.rmtree(work, ignore_errors=True)
+    log("sweep", f"phase wall {time.perf_counter() - t_phase:.1f} s")
     return extra
 
 
@@ -1993,7 +2252,8 @@ def main() -> None:
     launches.update(eval_launches)
     extra = phase_dtu(repo, gen)  # K1 and K2 on evalDTU.py's legacy path, f32 at 1184x1600
     for more in (remat, phase_train_extras(repo, gen, plain_step_s),  # refine, dumps (K5), profile
-                 phase_parallel(repo, gen, initial, plain_step_s, scan_maps)):  # gloo, NCCL, sharded stage A and B
+                 phase_parallel(repo, gen, initial, plain_step_s, scan_maps),  # gloo, NCCL, sharded stage A and B
+                 phase_sweep(repo, gen, initial)):  # the depth planes split over 2 and over 2x2 gloo ranks
         for kernel, fields in more.items():
             extra.setdefault(kernel, {}).update(fields)
     for row in rows:

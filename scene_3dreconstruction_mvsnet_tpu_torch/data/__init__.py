@@ -5,7 +5,8 @@ registry (name -> ``MVSDataset`` class, the reference's
 ``find_dataset_def``), the same samples (``img_cache`` reads through the
 decoded-image cache), ``Loader`` and ``BackgroundLoader``, and
 ``prefetch_to_device``, which stages batches in pinned memory and copies
-them to the card a step ahead."""
+them to the card a step ahead; and ``synthetic``, which writes analytic
+scenes in the reference's dataset layouts."""
 
 import importlib
 

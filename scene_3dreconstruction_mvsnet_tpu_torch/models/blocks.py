@@ -19,6 +19,13 @@ In training, a BatchNorm whose ``process_group`` holds more than one rank
 global batch, as the JAX package's sharded step does under GSPMD; while
 ``recomputing`` (a rematerialised segment's backward) it updates no buffer,
 as flax discards the recompute's ``batch_stats``.
+
+The 3D blocks take an optional ``sweep`` (``parallel.VolumeSharding``):
+the input is then this rank's slice of the depth axis, and D is padded with
+the neighbouring ranks' planes (``parallel/halo.py``) instead of zeros, so
+the block computes the unsplit block's planes of this slice. In training,
+their BatchNorm reduces over the ranks whose slices make the statistics
+(``parallel.make_sharded_train_step``).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.collectives import all_reduce_sum, world_size
+from ..parallel.halo import exchange_halos
 
 
 class _FlaxRunningVar:
@@ -97,13 +105,19 @@ def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if p is None else p.to(dtype)
 
 
-def conv(module: nn.Conv2d | nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``module`` in the dtype of ``x``."""
+def conv(module: nn.Conv2d | nn.Conv3d, x: torch.Tensor, sweep=None) -> torch.Tensor:
+    """Apply ``module`` in the dtype of ``x``; with ``sweep``, ``module`` a
+    3x3x3 conv with padding 1, to this rank's slice of D. The stride-1 conv
+    y[d] reads x[d-1..d+1], so the slice takes one plane from each
+    neighbour; the stride-2 conv y[d] reads x[2d-1..2d+1], so it takes one
+    lower plane only (the slice starts on an even plane). D then takes no
+    padding."""
     fn = F.conv2d if isinstance(module, nn.Conv2d) else F.conv3d
-    return fn(
-        x, _cast(module.weight, x.dtype), _cast(module.bias, x.dtype),
-        module.stride, module.padding,
-    )
+    padding = module.padding
+    if sweep is not None:
+        x = exchange_halos(x, 2, 1, 1 if module.stride[0] == 1 else 0, sweep.group)
+        padding = (0, *module.padding[1:])
+    return fn(x, _cast(module.weight, x.dtype), _cast(module.bias, x.dtype), module.stride, padding)
 
 
 class ConvBnReLU(nn.Module):
@@ -131,8 +145,8 @@ class ConvBnReLU3D(nn.Module):
         self.bn = BatchNorm3d(out_channels, eps=1e-5, momentum=0.1)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(conv(self.conv, x))
+    def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
+        x = self.bn(conv(self.conv, x, sweep))
         return F.relu(x) if self.relu else x
 
 
@@ -148,10 +162,22 @@ class ConvTransposeBnReLU3D(nn.Sequential):
             BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
+        """With ``sweep``: y[2i] reads x[i] and y[2i+1] reads x[i] and
+        x[i+1], so the slice takes one upper plane; the transposed conv then
+        adds no output padding on D, and its 2 D_slice + 1 planes are cut
+        to the slice's 2 D_slice."""
         deconv, bn = self[0], self[1]
-        x = F.conv_transpose3d(
-            x, _cast(deconv.weight, x.dtype), None, deconv.stride, deconv.padding,
-            deconv.output_padding,
-        )
+        if sweep is None:
+            x = F.conv_transpose3d(
+                x, _cast(deconv.weight, x.dtype), None, deconv.stride, deconv.padding,
+                deconv.output_padding,
+            )
+        else:
+            planes = 2 * x.shape[2]
+            x = exchange_halos(x, 2, 0, 1, sweep.group)
+            x = F.conv_transpose3d(
+                x, _cast(deconv.weight, x.dtype), None, deconv.stride, deconv.padding,
+                (0, *deconv.output_padding[1:]),
+            )[:, :, :planes]
         return F.relu(bn(x))

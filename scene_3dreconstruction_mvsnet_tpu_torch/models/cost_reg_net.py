@@ -12,6 +12,13 @@ channels-last like the JAX module; NCDHW inside.
 through the fused kernel K4, which reads the channels-last volume as the
 sweep writes it; training, and f32, keep the module conv0. The parameters
 are the same either way.
+
+With a ``sweep`` descriptor (``parallel.VolumeSharding``) the input is this
+rank's slice of the depth planes and every block pads D with its
+neighbours' planes (``models/blocks.py``); the output is the unsplit
+network's planes of the slice. K4 then runs on the slice extended by one
+neighbouring plane on each side and its two edge planes are dropped: K4 pads
+D with zeros itself, so only its interior planes are the unsplit conv's.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.conv0_fused import conv0_bn_relu, fold_bn
+from ..parallel.halo import exchange_halos
 from .blocks import ConvBnReLU3D, ConvTransposeBnReLU3D, conv
 
 
@@ -39,16 +47,22 @@ class CostRegNet(nn.Module):
         self.conv11 = ConvTransposeBnReLU3D(16, 8)
         self.prob = nn.Conv3d(8, 1, 3, stride=1, padding=1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, D, H, W, 32] in the compute dtype -> [B, D, H, W, 1]."""
+    def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
+        """x [B, D, H, W, 32] in the compute dtype -> [B, D, H, W, 1]; with
+        ``sweep``, D is this rank's slice."""
         if self.fused_conv0 and not self.training and x.dtype == torch.bfloat16:
-            conv0 = conv0_bn_relu(x, self.conv0.conv.weight, *fold_bn(self.conv0.bn))
+            scale, bias = fold_bn(self.conv0.bn)
+            if sweep is None:
+                conv0 = conv0_bn_relu(x, self.conv0.conv.weight, scale, bias)
+            else:
+                conv0 = conv0_bn_relu(exchange_halos(x, 1, 1, 1, sweep.group), self.conv0.conv.weight, scale,
+                                      bias)[:, :, 1:-1]
         else:
-            conv0 = self.conv0(x.permute(0, 4, 1, 2, 3).contiguous())
-        conv2 = self.conv2(self.conv1(conv0))
-        conv4 = self.conv4(self.conv3(conv2))
-        x = self.conv6(self.conv5(conv4))
-        x = conv4 + self.conv7(x)
-        x = conv2 + self.conv9(x)
-        x = conv0 + self.conv11(x)
-        return conv(self.prob, x).permute(0, 2, 3, 4, 1)
+            conv0 = self.conv0(x.permute(0, 4, 1, 2, 3).contiguous(), sweep)
+        conv2 = self.conv2(self.conv1(conv0, sweep), sweep)
+        conv4 = self.conv4(self.conv3(conv2, sweep), sweep)
+        x = self.conv6(self.conv5(conv4, sweep), sweep)
+        x = conv4 + self.conv7(x, sweep)
+        x = conv2 + self.conv9(x, sweep)
+        x = conv0 + self.conv11(x, sweep)
+        return conv(self.prob, x, sweep).permute(0, 2, 3, 4, 1)

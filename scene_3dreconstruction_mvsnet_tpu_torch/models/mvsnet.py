@@ -15,6 +15,14 @@ training (``model.train()``, gradients on) step 2 is the paired sweep (K1
 emitting the warps forward, K3 backward) and step 4 the plain differentiable
 regression, since the regression kernel has no backward; BatchNorm then
 normalises with batch statistics, FeatureNet's over all B*V images.
+
+With ``volume_sharding`` (the JAX module's constraint of the volume to
+``P('data', 'sweep')``) the depth planes are split over the ranks of a sweep
+group: each rank runs FeatureNet whole, sweeps and regularises its slice of
+the planes, and the [B, D/S, h, w] logits are gathered over the group before
+the regression, so the softmax, the expectation and the 4-plane confidence
+window (which can straddle two slices) see every plane; RefineNet runs on
+the gathered result. Every rank of the group returns the same outputs.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from ..ops.kernels.sweep_variance import sweep_variance
 from ..ops.paired_sweep import paired_cost_volume
 from ..ops.regression import regress_depth_and_confidence
 from ..parallel.collectives import all_reduce_sum
+from ..parallel.halo import gather_depth
 from .blocks import _FlaxRunningVar
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
@@ -61,14 +70,22 @@ class MVSNet(nn.Module):
         emitted warps and the U-Net's activations are not held from the
         forward to the backward, and the sweep kernel K1 runs again in the
         backward. The recompute updates no BatchNorm buffer.
+      volume_sharding: a ``parallel.VolumeSharding``: split the depth planes
+        over its sweep group (D must be a multiple of 8 x its ranks). Not
+        with ``remat``, whose recompute would run the halo exchanges and the
+        BatchNorm reductions a second time inside the backward.
     """
 
     def __init__(self, refine: bool = False, depth_chunk: int | None = None, dtype: torch.dtype | None = None,
-                 fused_conv0: bool = False, remat: bool = False):
+                 fused_conv0: bool = False, remat: bool = False, volume_sharding=None):
         super().__init__()
+        if remat and volume_sharding is not None:
+            raise ValueError("remat is not supported with volume_sharding: the recompute would run the halo "
+                             "exchanges and the BatchNorm reductions over the ranks again inside the backward")
         self.depth_chunk = depth_chunk
         self.dtype = dtype
         self.remat = remat
+        self.volume_sharding = volume_sharding
         self.feature = FeatureNet()
         self.cost_regularization = CostRegNet(fused_conv0=fused_conv0)
         self.refine_network = RefineNet() if refine else None
@@ -81,6 +98,7 @@ class MVSNet(nn.Module):
             raise ValueError(f"got {V} images but {proj_matrices.shape[1]} projection matrices")
         dtype = self.dtype or torch.float32
         depth_values = depth_values.float()
+        D = depth_values.shape[1]
 
         # Step 1: feature extraction, views folded into the batch.
         feats = self.feature(imgs.reshape(B * V, H, W, C).to(dtype))
@@ -88,17 +106,24 @@ class MVSNet(nn.Module):
 
         # Step 2: variance cost volume [B, D, H/4, W/4, 32] in the compute
         # dtype, accumulated in f32; differentiable through the paired sweep
-        # when training.
+        # when training. Split: this rank's planes only (contiguous: the
+        # kernel reads the depth values through a raw pointer).
+        split = self.volume_sharding
+        planes = depth_values if split is None else depth_values[:, split.depth_slice(D)].contiguous()
         training = self.training and torch.is_grad_enabled()
         sweep = paired_cost_volume if training else sweep_variance
         remat = self._rematerialised if self.remat and training else lambda fn, *args: fn(*args)
         volume = remat(
             lambda f, p, d: sweep(f, p, d, depth_chunk=self.depth_chunk, out_dtype=dtype),
-            feats, proj_matrices.float(), depth_values,
+            feats, proj_matrices.float(), planes,
         )
 
-        # Step 3: 3D U-Net -> [B, D, h, w] logits.
-        cost_reg = remat(self.cost_regularization, volume)[..., 0]
+        # Step 3: 3D U-Net -> [B, D, h, w] logits (split: this rank's planes,
+        # then every rank's, gathered over the sweep group).
+        if split is None:
+            cost_reg = remat(self.cost_regularization, volume)[..., 0]
+        else:
+            cost_reg = gather_depth(self.cost_regularization(volume, split)[..., 0], 1, split.group)
 
         # Step 4: softmax regression + confidence, in f32. The kernel is
         # inference-only and reads the logits in the compute dtype (no cast

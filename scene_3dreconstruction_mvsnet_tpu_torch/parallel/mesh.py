@@ -2,18 +2,21 @@
 
 Counterpart of ``scene_3dreconstruction_mvsnet_tpu/parallel/mesh.py``. The
 JAX package builds a ('data', 'sweep') device mesh and lets XLA place the
-collectives; here data parallelism is one process per card joined by a
+collectives; here every rank is one process joined to a
 ``torch.distributed`` process group (``initialize_multihost``), or, within
 one process, a list of devices (``local_devices``, the device pick of
-``make_mesh``). The 'sweep' axis (the cost volume's depth axis split over
-devices) is not ported: the recipe's bf16 volume is about 1 GB and the
-inference headline's 0.76 GB, against 80 GB of device memory.
+``make_mesh`` for the sharded eval). ``make_mesh`` lays the ranks of a group
+out as a data x sweep grid and makes the groups of its rows and columns:
+the ranks of a sweep group each hold a slice of the cost volume's depth
+axis (``parallel/halo.py``), the ranks of a data group each hold rows of
+the batch.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -73,3 +76,56 @@ def local_devices(n: int, device: torch.device | str = "cuda") -> list[torch.dev
     if n > have:
         raise ValueError(f"mesh {n}x1 needs {n} devices, have {have} ({kind})")
     return [torch.device(kind, i) if kind == "cuda" else torch.device(kind) for i in range(n)]
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A data x sweep layout of the ranks of ``world``, as this rank sees it.
+
+    Rank r of ``world`` sits at (r // sweep, r % sweep), the order of the
+    JAX package's ``devices.reshape(data, sweep)``. ``sweep_group`` holds the
+    ranks of this rank's data index (they split the depth planes),
+    ``data_group`` those of its sweep index (they split the batch); a group
+    of one rank is None, as the collectives take a lone process."""
+
+    data: int
+    sweep: int
+    data_index: int
+    sweep_index: int
+    world: dist.ProcessGroup
+    data_group: dist.ProcessGroup | None
+    sweep_group: dist.ProcessGroup | None
+
+
+def make_mesh(data: int | None = None, sweep: int = 1, group=None) -> Mesh:
+    """Lay the ranks of ``group`` (default: the default process group) out
+    as a ``data`` x ``sweep`` mesh; ``data`` defaults to the ranks over
+    ``sweep``. Every rank of ``group`` must call it with the same arguments:
+    each makes every row and column group in the same order (only the
+    members of a group wait for each other)."""
+    group = dist.group.WORLD if group is None else group
+    ranks = dist.get_process_group_ranks(group)
+    if data is None:
+        data = len(ranks) // sweep
+    if data < 1 or sweep < 1 or data * sweep != len(ranks):
+        raise ValueError(f"mesh {data}x{sweep} needs {data * sweep} ranks, the group has {len(ranks)}")
+    data_index, sweep_index = divmod(dist.get_rank(group), sweep)
+
+    def new_group(members: list[int]):
+        return dist.new_group(members, use_local_synchronization=True) if len(members) > 1 else None
+
+    rows = [new_group([ranks[d * sweep + s] for s in range(sweep)]) for d in range(data)]
+    cols = [new_group([ranks[d * sweep + s] for d in range(data)]) for s in range(sweep)]
+    return Mesh(data, sweep, data_index, sweep_index, group, cols[sweep_index], rows[data_index])
+
+
+def make_global_mesh(sweep: int = 1, max_sweep: int = 4) -> Mesh:
+    """A mesh over every rank of the default process group; ``sweep`` <= 0
+    picks it with ``auto_mesh_shape(world size, max_sweep)``. Raises when
+    the world does not divide by ``sweep``."""
+    n = dist.get_world_size()
+    if sweep <= 0:
+        _, sweep = auto_mesh_shape(n, max_sweep=max_sweep)
+    if n % sweep:
+        raise ValueError(f"{n} global ranks not divisible by sweep={sweep}")
+    return make_mesh(data=n // sweep, sweep=sweep)

@@ -12,21 +12,25 @@ metrics see the global batch. Here:
     the ranks (``parallel/collectives.py``), so every rank keeps equal
     parameters and buffers and the step equals the single-process step on
     the whole batch;
+  - the same step over a data x sweep ``Mesh`` (``parallel/mesh.py``):
+    the ranks of a sweep group hold the same rows and each sweeps and
+    regularises its slice of the depth planes (``volume_sharding``, the
+    counterpart of the JAX package's ``P('data', 'sweep')`` volume);
   - ``make_sharded_infer``: one process, a replica of the model per
     device, the view/batch axis split over the devices in order.
-
-The 'sweep' axis (``volume_sharding``) is not ported (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import copy
+from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
 import torch
 import torch.distributed as dist
 
-from .collectives import broadcast_module, world_size
+from .collectives import all_reduce_grads, broadcast_module, world_size
+from .mesh import Mesh
 
 BATCH_FIELDS = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
 
@@ -41,16 +45,53 @@ def shard_rows(n: int, rank: int, world: int) -> slice:
     return slice(rank * per, (rank + 1) * per)
 
 
+# CostRegNet's three stride-2 levels halve every rank's slice three times,
+# and each level's slice must start at an even plane
+SWEEP_DEPTH_MULTIPLE = 8
+
+
+@dataclass(frozen=True)
+class VolumeSharding:
+    """How the cost volume's depth axis is split: this rank is ``index`` of
+    the ``size`` ranks of the sweep ``group`` (None for one rank) and holds
+    the planes ``depth_slice(D)``. The model takes it as
+    ``MVSNet(volume_sharding=...)``."""
+
+    group: Any
+    size: int
+    index: int
+
+    def depth_slice(self, D: int) -> slice:
+        """This rank's planes [index D/size, (index+1) D/size). D must be a
+        multiple of 8 x size: CostRegNet halves each slice three times with
+        its stride-2 convs, and every slice must start on an even plane at
+        each level for the halo exchanges to give the unsplit convs' planes
+        (the JAX package lets GSPMD pad uneven shards; here they are
+        refused)."""
+        if D % (SWEEP_DEPTH_MULTIPLE * self.size):
+            raise ValueError(f"D={D} planes cannot be split over {self.size} sweep ranks: D must be a multiple of "
+                             f"{SWEEP_DEPTH_MULTIPLE * self.size} (8 x the sweep ranks)")
+        per = D // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+def volume_sharding(mesh: Mesh) -> VolumeSharding:
+    """The depth split of ``mesh``'s sweep axis, for ``MVSNet``."""
+    return VolumeSharding(mesh.sweep_group, mesh.sweep, mesh.sweep_index)
+
+
 def make_sharded_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
     device: torch.device | str,
     group=None,
+    mesh: Mesh | None = None,
 ) -> tuple[Callable[[Mapping[str, Any]], dict[str, torch.Tensor]], Callable[[Mapping[str, Any]], dict]]:
     """Build ``(train_step, shard_fn)`` for data-parallel training over
     ``group`` (default: the default process group), ``model`` already on
-    ``device``.
+    ``device``; or, with ``mesh``, for data x sweep training
+    (``_make_mesh_train_step``).
 
     Rank 0's parameters and buffers are broadcast to every rank here, and
     every BatchNorm of ``model`` takes its training statistics over the
@@ -64,6 +105,10 @@ def make_sharded_train_step(
     from ..models.blocks import _FlaxRunningVar
     from ..train.state import make_train_step
 
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("pass a group or a mesh, not both")
+        return _make_mesh_train_step(model, optimizer, scheduler, device, mesh)
     group = dist.group.WORLD if group is None else group
     rank, world = dist.get_rank(group), world_size(group)
     broadcast_module(model, group)
@@ -76,6 +121,56 @@ def make_sharded_train_step(
         return {k: (v[rows] if k in BATCH_FIELDS else v) for k, v in batch.items()}
 
     return make_train_step(model, optimizer, scheduler, device, group), shard_fn
+
+
+def _make_mesh_train_step(model, optimizer, scheduler, device, mesh: Mesh):
+    """The data x sweep step: the step on the whole batch, every quantity
+    counted once.
+
+      - ``model`` must be an ``MVSNet`` built with this mesh's
+        ``volume_sharding``; rank 0 of the mesh's world gives every rank its
+        weights;
+      - the ranks of a sweep group take the same rows (their data index's);
+      - BatchNorm: FeatureNet's and RefineNet's inputs are the same on every
+        rank of a sweep group, so their statistics are taken over the data
+        group; CostRegNet's slices make up the global volume, so its
+        statistics are taken over the whole mesh (equal shares per rank, as
+        D divides);
+      - the loss and the metrics: every rank of a sweep group computes its
+        rows' share, so they reduce over the data group only;
+      - the gradients: a rank's gradients of FeatureNet and CostRegNet come
+        from its planes alone (the gathered logits give each rank its own
+        slice of their gradient), so they sum over the whole mesh; what lies
+        after the gather (RefineNet) is computed whole on each rank of a
+        sweep group, so its sum over the mesh counts it ``sweep`` times and
+        is divided by ``sweep``. One collective over the mesh gives every
+        rank the same gradients, so the parameters stay equal on all ranks."""
+    from ..models.blocks import _FlaxRunningVar
+    from ..train.state import make_train_step
+
+    sharding = getattr(model, "volume_sharding", None)
+    if sharding is None or sharding.group is not mesh.sweep_group or sharding.index != mesh.sweep_index:
+        raise ValueError("the model must be built with MVSNet(volume_sharding=volume_sharding(mesh)) of this mesh")
+    broadcast_module(model, mesh.world)
+    for m in model.modules():
+        if isinstance(m, _FlaxRunningVar):
+            m.process_group = mesh.data_group
+    for m in model.cost_regularization.modules():
+        if isinstance(m, _FlaxRunningVar):
+            m.process_group = mesh.world
+    whole = list(model.refine_network.parameters()) if model.refine_network is not None else []
+
+    def reduce_grads() -> None:
+        all_reduce_grads(model.parameters(), mesh.world)
+        for p in whole:
+            if p.grad is not None:
+                p.grad.div_(mesh.sweep)
+
+    def shard_fn(batch: Mapping[str, Any]) -> dict:
+        rows = shard_rows(len(batch["imgs"]), mesh.data_index, mesh.data)
+        return {k: (v[rows] if k in BATCH_FIELDS else v) for k, v in batch.items()}
+
+    return make_train_step(model, optimizer, scheduler, device, mesh.data_group, reduce_grads), shard_fn
 
 
 def make_sharded_infer(

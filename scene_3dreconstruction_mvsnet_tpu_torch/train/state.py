@@ -55,6 +55,7 @@ def make_train_step(
     scheduler: torch.optim.lr_scheduler.LRScheduler,
     device: torch.device | str,
     group=None,
+    reduce_grads: Callable[[], None] | None = None,
 ) -> Callable[[Mapping[str, Any]], dict[str, torch.Tensor]]:
     """Return ``train_step(batch) -> aux``. batch: imgs [B, V, H, W, 3] (f32
     or u8), proj_matrices [B, V, 4, 4], depth_values [B, D], depth [B, h, w],
@@ -69,8 +70,12 @@ def make_train_step(
     With a process ``group`` (``parallel.make_sharded_train_step``) the
     batch is this rank's rows of the global batch: the loss is its share of
     the global masked mean, the gradients are summed over the ranks before
-    the update, and 'loss' and the metrics are those of the global batch."""
+    the update, and 'loss' and the metrics are those of the global batch.
+    ``reduce_grads``, if given, takes the place of that sum (the data x
+    sweep step's, ``parallel/sharding.py``)."""
     device = torch.device(device)
+    if reduce_grads is None and group is not None:
+        reduce_grads = lambda: all_reduce_grads(model.parameters(), group)  # noqa: E731
 
     def train_step(batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         model.train()
@@ -79,8 +84,8 @@ def make_train_step(
         loss = mvsnet_loss(outputs.get("refined_depth", outputs["depth"]), b["depth"], b["mask"], group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if group is not None:
-            all_reduce_grads(model.parameters(), group)
+        if reduce_grads is not None:
+            reduce_grads()
         optimizer.step()
         scheduler.step()
         return _aux(loss, outputs, b, group)

@@ -1,7 +1,8 @@
 """The port imports, serves, trains and runs both CLIs with JAX, flax and the
 JAX package itself unavailable, as on the machine with the card. No module
 of the port reaches into the JAX package, ``interop`` included: the weight
-bridge carries its own numpy-only conversion."""
+bridge carries its own numpy-only conversion, and the datasets the CLIs read
+are written by the port's own ``data/synthetic.py``."""
 
 import os
 import subprocess
@@ -22,6 +23,9 @@ sys.modules["scene_3dreconstruction_mvsnet_tpu"] = None  # the JAX package: ever
 import torch
 torch.set_num_threads(1)
 import scene_3dreconstruction_mvsnet_tpu_torch as pkg
+from scene_3dreconstruction_mvsnet_tpu_torch.data.synthetic import (
+    SyntheticRig, make_dtu_tree, make_eval_tree, write_scan_list,
+)
 
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -44,6 +48,13 @@ assert out["depth"].shape == (1, 8, 8) and out["photometric_confidence"].shape =
 assert torch.isfinite(out["depth"]).all() and torch.isfinite(out["photometric_confidence"]).all()
 assert ((out["depth"] >= 40.0 - 1e-3) & (out["depth"] <= 60.0 + 1e-3)).all()
 
+# the sweep split's code path at one rank (its halos zeros, its gather the identity)
+from scene_3dreconstruction_mvsnet_tpu_torch.parallel import VolumeSharding
+split = MVSNet(volume_sharding=VolumeSharding(None, 1, 0))
+split.load_state_dict(model.state_dict())
+out1 = make_infer_step(split, "cpu")(imgs, projs[None], dv)
+assert torch.allclose(out1["depth"], out["depth"], rtol=0, atol=1e-4)
+
 from scene_3dreconstruction_mvsnet_tpu_torch.train import make_optimizer, make_scheduler, make_train_step
 opt = make_optimizer(model, 1e-3)
 step = make_train_step(model, opt, make_scheduler(opt, "1:2", 1), "cpu")
@@ -57,6 +68,8 @@ assert all(p.grad is not None for p in model.parameters())
 from scene_3dreconstruction_mvsnet_tpu_torch import train_cli
 root = sys.argv[1]
 dtu = root + "/dtu"
+make_dtu_tree(dtu, rig=SyntheticRig(n_views=3, img_hw=(32, 32), baseline=4.0), ndepths=8)
+write_scan_list(dtu + "/list.txt", ["scan1"])
 train_cli.main(["--mode", "train", "--dataset", "dtu_yao", "--trainpath", dtu, "--trainlist", dtu + "/list.txt",
                 "--testlist", dtu + "/list.txt", "--epochs", "1", "--batch_size", "7", "--numdepth", "8",
                 "--NtrainViews", "3", "--NtestViews", "3", "--logdir", root + "/log", "--num_workers", "0",
@@ -66,6 +79,8 @@ assert os.path.exists(root + "/log/model_000000.ckpt")
 # both eval stages, the fused conv0 and the warp dumps, on the eval tree the test made
 from scene_3dreconstruction_mvsnet_tpu_torch import eval_cli
 acq = root + "/acq"
+make_eval_tree(acq, rig=SyntheticRig(n_views=3, img_hw=(32, 32), baseline=3.0), ndepths=8)
+write_scan_list(acq + "/test.txt", ["scan1"])
 out = eval_cli.main([
     "--dataset", "dataloader_eval", "--dataset_name", "bds8", "--testpath", acq, "--testlist", acq + "/test.txt",
     "--loadckpt", root + "/model.ckpt", "--outdir", root + "/out", "--NviewGen", "3", "--NviewFilter", "2",
@@ -87,26 +102,21 @@ assert {"scene_3dreconstruction_mvsnet_tpu_torch.train_cli", "scene_3dreconstruc
         "scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.plane_sweep_warp",
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.mesh",
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.collectives",
-        "scene_3dreconstruction_mvsnet_tpu_torch.parallel.sharding"} <= set(sys.modules)
+        "scene_3dreconstruction_mvsnet_tpu_torch.parallel.sharding",
+        "scene_3dreconstruction_mvsnet_tpu_torch.parallel.halo",
+        "scene_3dreconstruction_mvsnet_tpu_torch.data.synthetic"} <= set(sys.modules)
 print("imported", len(names), "modules")
 """
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
     """Every module of the port imports with the JAX package blocked; one
-    request is served, one training step taken, one epoch trained by
-    train_cli and a 3-view scan evaluated by eval_cli, on the CPU."""
-    from scene_3dreconstruction_mvsnet_tpu.data.synthetic import (
-        SyntheticRig, make_dtu_tree, make_eval_tree, write_scan_list,
-    )
+    request is served (also through the sweep split's path at one rank), one
+    training step taken, a DTU tree and an eval tree written by the port's
+    synthetic module, one epoch trained by train_cli and the 3-view scan
+    evaluated by eval_cli, on the CPU."""
     from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
 
-    root = tmp_path / "acq"
-    make_eval_tree(str(root), rig=SyntheticRig(n_views=3, img_hw=(32, 32), baseline=3.0), ndepths=8)
-    write_scan_list(str(root / "test.txt"), ["scan1"])
-    dtu = tmp_path / "dtu"
-    make_dtu_tree(str(dtu), rig=SyntheticRig(n_views=3, img_hw=(32, 32), baseline=4.0), ndepths=8)
-    write_scan_list(str(dtu / "list.txt"), ["scan1"])
     model = random_init_(MVSNet(), torch.Generator().manual_seed(0))
     torch.save({"model": model.state_dict()}, tmp_path / "model.ckpt")
     env = dict(os.environ, OMP_NUM_THREADS="1")
