@@ -118,7 +118,9 @@ def save_depth(
     phases' host seconds (the forward split into ``launch``, the host
     queueing it, and ``device_wait``, the host waiting for its results) and,
     on a card, each batch's ``device_ms`` from CUDA events around the forward
-    (from its first kernel's start to its last one's end, idle gaps included).
+    (from its first kernel's start to its last one's end, idle gaps included);
+    ``device_busy_frac``, the sum of the forward spans over stage A's wall
+    (the spans from the host clock on the CPU, launch to results).
 
     ``batch_size`` > 1 batches reference views; the trailing partial batch
     is padded by repeating its last view (the padding is not written).
@@ -180,6 +182,7 @@ def save_depth(
 
     gen_times: list[float] = []  # per view: the time between successive batches' results / views
     device_ms: list[float] = []  # per batch, on a card
+    host_spans: list[float] = []  # per batch, off a card: launch to results on the host clock
     first_batch_views = 0  # views of batch 0, whose time carries the first launches
     writer = ThreadPoolExecutor(max_workers=2)
     pending = []
@@ -276,6 +279,8 @@ def save_depth(
         mark("device_wait")
         if events:
             device_ms.append(events[0].elapsed_time(events[1]))
+        else:
+            host_spans.append(now - t0)
         emit_batch(sample, n_real, depths, confidences, dt)
         mark("emit")
     for f in pending:
@@ -286,6 +291,13 @@ def save_depth(
     mark("writer_drain")
 
     print("stage A phases (s): " + " ".join(f"{k}={v:.2f}" for k, v in phases.items()))
+    device_busy_frac = None
+    stage_a_wall = sum(phases.values())
+    spans = [ms / 1e3 for ms in device_ms] or host_spans
+    if spans and stage_a_wall > 0:
+        device_busy_frac = min(1.0, sum(spans) / stage_a_wall)
+        print(f"device busy: {sum(spans):.3f} s of forward spans ({'CUDA events' if device_ms else 'host clock'}) "
+              f"over {len(spans)} batches / stage A = {device_busy_frac:.1%}")
 
     if accumulate_cloud and vertices:
         all_pts, all_cols = np.concatenate(vertices), np.concatenate(vertex_colors)
@@ -303,11 +315,13 @@ def save_depth(
     tail = gen_times[first_batch_views:]  # the steady state leaves out the first batch
     steady = float(np.mean(tail)) if tail else avg
     print(f"Averaged generation time: {avg}")
+    print(f"steady_gen_time: {steady}")
     return {
         "avg_gen_time": avg,
         "steady_gen_time": steady,
         "n_views": len(gen_times),
         "device_ms": device_ms,
+        "device_busy_frac": device_busy_frac,
         "outdir_acq": outdir_acq,
         "phases": phases,
     }

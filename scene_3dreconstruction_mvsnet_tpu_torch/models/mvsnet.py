@@ -71,17 +71,15 @@ class MVSNet(nn.Module):
         forward to the backward, and the sweep kernel K1 runs again in the
         backward. The recompute updates no BatchNorm buffer.
       volume_sharding: a ``parallel.VolumeSharding``: split the depth planes
-        over its sweep group (D must be a multiple of 8 x its ranks). Not
-        with ``remat``, whose recompute would run the halo exchanges and the
-        BatchNorm reductions a second time inside the backward.
+        over its sweep group (D must be a multiple of 8 x its ranks). With
+        ``remat``, the recompute of this rank's CostRegNet runs its halo
+        exchanges and BatchNorm reductions again inside the backward; every
+        rank runs the same backward graph, so the collectives stay matched.
     """
 
     def __init__(self, refine: bool = False, depth_chunk: int | None = None, dtype: torch.dtype | None = None,
                  fused_conv0: bool = False, remat: bool = False, volume_sharding=None):
         super().__init__()
-        if remat and volume_sharding is not None:
-            raise ValueError("remat is not supported with volume_sharding: the recompute would run the halo "
-                             "exchanges and the BatchNorm reductions over the ranks again inside the backward")
         self.depth_chunk = depth_chunk
         self.dtype = dtype
         self.remat = remat
@@ -120,10 +118,9 @@ class MVSNet(nn.Module):
 
         # Step 3: 3D U-Net -> [B, D, h, w] logits (split: this rank's planes,
         # then every rank's, gathered over the sweep group).
-        if split is None:
-            cost_reg = remat(self.cost_regularization, volume)[..., 0]
-        else:
-            cost_reg = gather_depth(self.cost_regularization(volume, split)[..., 0], 1, split.group)
+        cost_reg = remat(self.cost_regularization, volume, split)[..., 0]
+        if split is not None:
+            cost_reg = gather_depth(cost_reg, 1, split.group)
 
         # Step 4: softmax regression + confidence, in f32. The kernel is
         # inference-only and reads the logits in the compute dtype (no cast

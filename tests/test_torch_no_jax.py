@@ -1,8 +1,9 @@
-"""The port imports, serves, trains and runs both CLIs with JAX, flax and the
-JAX package itself unavailable, as on the machine with the card. No module
-of the port reaches into the JAX package, ``interop`` included: the weight
-bridge carries its own numpy-only conversion, and the datasets the CLIs read
-are written by the port's own ``data/synthetic.py``."""
+"""The port imports, serves, trains, runs both CLIs and its bench with JAX,
+flax, the JAX package itself and the root's bench scripts unavailable, as
+on the machine with the card. No module of the port reaches into the JAX
+package, ``interop`` included: the weight bridge carries its own numpy-only
+conversion, and the datasets the CLIs read are written by the port's own
+``data/synthetic.py``."""
 
 import os
 import subprocess
@@ -20,6 +21,8 @@ import importlib, os, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["scene_3dreconstruction_mvsnet_tpu"] = None  # the JAX package: every import of it fails
+sys.modules["bench"] = None  # and the root's bench scripts, which measure the JAX package
+sys.modules["scripts"] = None
 import torch
 torch.set_num_threads(1)
 import scene_3dreconstruction_mvsnet_tpu_torch as pkg
@@ -105,6 +108,13 @@ assert {"scene_3dreconstruction_mvsnet_tpu_torch.train_cli", "scene_3dreconstruc
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.sharding",
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.halo",
         "scene_3dreconstruction_mvsnet_tpu_torch.data.synthetic"} <= set(sys.modules)
+# the bench entry points: the headline at a small size
+from scene_3dreconstruction_mvsnet_tpu_torch.bench import headline
+line = headline.main(["--device", "cpu", "--hw", "32", "32", "--numdepth", "8", "--iters", "1",
+                      "--out", root + "/bench"])
+assert line["platform"] == "cpu" and line["value"] > 0
+bench_modules = ("rigs", "headline", "configs", "train_step", "train_e2e", "e2e_eval", "profile_input")
+assert {"scene_3dreconstruction_mvsnet_tpu_torch.bench." + m for m in bench_modules} <= set(sys.modules)
 print("imported", len(names), "modules")
 """
 
@@ -114,7 +124,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     request is served (also through the sweep split's path at one rank), one
     training step taken, a DTU tree and an eval tree written by the port's
     synthetic module, one epoch trained by train_cli and the 3-view scan
-    evaluated by eval_cli, on the CPU."""
+    evaluated by eval_cli, and the headline bench run, on the CPU."""
     from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, random_init_
 
     model = random_init_(MVSNet(), torch.Generator().manual_seed(0))

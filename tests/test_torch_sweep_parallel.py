@@ -135,11 +135,14 @@ for tag, dtype, state in (("f64", torch.float64, task["state64"]), ("f32", torch
         out["fwd_" + tag] = model.eval()(*(torch.from_numpy(b[k]).to(dtype) for k in ("imgs", "proj_matrices",
                                                                                       "depth_values")))
 
-# 4. the data x sweep SGD step
-for tag, refine, dtype, state in (("f64", False, torch.float64, task["state64"]),
-                                  ("f64_refine", True, torch.float64, task["state64_refine"]),
-                                  ("f32", False, torch.float32, task["state32"])):
-    model = MVSNet(refine=refine, dtype=dtype if dtype == torch.float64 else None, volume_sharding=vs).to(dtype)
+# 4. the data x sweep SGD step (and with remat: the recompute runs the halo
+# exchanges and the BatchNorm reductions again inside the backward)
+for tag, refine, remat, dtype, state in (("f64", False, False, torch.float64, task["state64"]),
+                                         ("f64_refine", True, False, torch.float64, task["state64_refine"]),
+                                         ("f64_remat", False, True, torch.float64, task["state64"]),
+                                         ("f32", False, False, torch.float32, task["state32"])):
+    model = MVSNet(refine=refine, dtype=dtype if dtype == torch.float64 else None, remat=remat,
+                   volume_sharding=vs).to(dtype)
     if rank == 0:  # the other ranks start from rank 0's weights through the broadcast
         model.load_state_dict(state)
     opt = torch.optim.SGD(model.parameters(), lr=task["lr"])
@@ -254,14 +257,15 @@ def test_make_mesh_order_matches_jax(job):
 
 def test_depth_slice_and_remat_refusals():
     """A sweep rank's planes, and the splits refused: D not a multiple of 8
-    x the sweep ranks (CostRegNet's three stride-2 levels), and remat."""
+    x the sweep ranks (CostRegNet's three stride-2 levels). remat is no
+    longer refused with a split: the model builds with both."""
     assert VolumeSharding(None, 2, 1).depth_slice(32) == slice(16, 32)
     assert VolumeSharding(None, 4, 2).depth_slice(64) == slice(32, 48)
     for size, planes in ((2, 24), (4, 16), (1, 12)):
         with pytest.raises(ValueError, match=f"multiple of {8 * size}"):
             VolumeSharding(None, size, 0).depth_slice(planes)
-    with pytest.raises(ValueError, match="remat"):
-        MVSNet(remat=True, volume_sharding=VolumeSharding(None, 2, 0))
+    model = MVSNet(remat=True, volume_sharding=VolumeSharding(None, 2, 0))
+    assert model.remat and model.volume_sharding.size == 2
 
 
 def test_one_rank_halos_are_zero_padding():
@@ -429,6 +433,29 @@ def test_data_sweep_step_matches_one_process(job, refine):
             np.testing.assert_allclose(got["state"][n].numpy(), b.numpy(), rtol=1e-10, err_msg=f"rank {r} {n}")
         for n, t in got["state"].items():
             assert torch.equal(t, ranks[0]["step_" + tag]["state"][n]), (r, n)
+
+
+def test_data_sweep_remat_step_matches_plain_split_step(job):
+    """MVSNet(remat=True, volume_sharding=...) on the data=2 x sweep=2 mesh
+    against the plain split step of the same rank, f64, one SGD step from the
+    same weights: every gradient within 1e-10 x the largest |g| of the plain
+    step, the loss at rtol 1e-10, and each BatchNorm's running statistics
+    updated once (the buffers those of the plain step at rtol 1e-10, every
+    num_batches_tracked 1), so the recompute's BatchNorm reductions updated
+    nothing."""
+    _, ranks = job
+    for r, out in enumerate(ranks):
+        plain, remat = out["step_f64"], out["step_f64_remat"]
+        np.testing.assert_allclose(float(remat["loss"]), float(plain["loss"]), rtol=1e-10, err_msg=f"rank {r}")
+        largest = max(g.abs().max().item() for g in plain["grads"].values())
+        for n, g in plain["grads"].items():
+            err = (remat["grads"][n] - g).abs().max().item()
+            assert err <= 1e-10 * largest, f"rank {r} {n}: max|err| {err:.3e} > 1e-10 x {largest:.3e}"
+        for n, b in plain["state"].items():
+            if "running" in n:
+                np.testing.assert_allclose(remat["state"][n].numpy(), b.numpy(), rtol=1e-10, err_msg=f"rank {r} {n}")
+            elif n.endswith("num_batches_tracked"):
+                assert int(remat["state"][n]) == int(b) == 1, (r, n)
 
 
 def test_data_sweep_step_f32_matches_jax(job, jax_model):
