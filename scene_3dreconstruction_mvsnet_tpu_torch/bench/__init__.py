@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 from pathlib import Path
 
@@ -64,14 +63,6 @@ def platform_fields(device: torch.device) -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return {"platform": "gpu", "backend": "torch", "device": lines[min(device.index or 0, len(lines) - 1)]}
-
-
-def child_env() -> dict:
-    """The environment of a child process that imports the port from this
-    checkout."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
-    return env
 
 
 def synchronize(device: torch.device) -> None:

@@ -35,10 +35,10 @@ from .rigs import ring_rig, translation_rig
 
 def bench_forward(V: int, H: int, W: int, projs: np.ndarray, dv: np.ndarray, device: torch.device,
                   iters: int = ITERS, warmup: int = WARMUP) -> float:
-    """Sustained seconds per depth map of the bf16 forward on the first V
-    cameras of ``projs``."""
+    """Sustained seconds per depth map of the bf16 forward on the V cameras
+    of ``projs``."""
     imgs = torch.from_numpy(np.random.RandomState(0).rand(1, V, H, W, 3).astype(np.float32)).to(device)
-    proj = torch.from_numpy(np.ascontiguousarray(projs[None, :V])).to(device)
+    proj = torch.from_numpy(np.ascontiguousarray(projs[None])).to(device)
     return sustained_seconds(build_model(device), imgs, proj, torch.from_numpy(dv[None]).to(device), iters, warmup)
 
 
@@ -67,6 +67,41 @@ def bench_filter(n_views: int, H: int, W: int, extrinsics: np.ndarray, n_src: in
     return (time.perf_counter() - t0) / iters / n_views
 
 
+def forward_rigs(hw: tuple[int, int] | None = None, numdepth: int | None = None) -> dict[str, tuple]:
+    """Each configuration's forward, by result key: (V, H, W, D, the V
+    cameras' projections [V, 4, 4] at feature resolution, the depth values
+    [D]); ``hw`` and ``numdepth`` replace every configuration's size (the
+    tests' small runs)."""
+
+    def size(H, W, D):
+        (H, W), D = hw or (H, W), numdepth or D
+        return H, W, D, np.linspace(425, 905, D).astype(np.float32)
+
+    def translation_K(H, W):
+        return np.array([[W * 0.7, 0, W / 8], [0, W * 0.7, H / 8], [0, 0, 1]], np.float32) / 4.0
+
+    rigs = {}
+    H, W, D, dv = size(512, 640, 96)
+    rigs["dtu_small_3v_96d_512x640"] = (3, H, W, D, translation_rig(3, 2.0, translation_K(H, W)), dv)
+    H, W, D, dv = size(864, 1152, 192)
+    rigs["dtu_full_5v_192d_864x1152"] = (5, H, W, D, translation_rig(5, 2.0, translation_K(H, W)), dv)
+    # the BDS8 49-camera ring: a reference camera and its 4 nearest ring neighbours
+    H, W, D, dv = size(512, 640, 192)
+    K = np.array([[W * 1.1, 0, W / 2], [0, W * 1.1, H / 2], [0, 0, 1]], np.float32) / 4.0
+    rigs["bds8_49cam_5v_192d_512x640"] = (5, H, W, D, ring_rig(49, 150.0, -700.0, 700.0, K)[[0, 1, 48, 2, 47]], dv)
+    # the bin's 4-camera rig (the BDS8 intrinsics)
+    rigs["bin_4cam_4v_192d_512x640"] = (4, H, W, D, ring_rig(4, 120.0, -650.0, 650.0, K), dv)
+    return rigs
+
+
+# stage B's filter: result key -> (saved views, the ring they sit on (n, radius, height, z0), sources each)
+FILTERS = {
+    "dtu_full_5v_192d_864x1152": (49, (49, 50.0, -600.0, 600.0), 10),  # DTU's NviewFilter
+    "bds8_49cam_5v_192d_512x640": (49, (49, 150.0, -700.0, 700.0), 10),
+    "bin_4cam_4v_192d_512x640": (4, (4, 120.0, -650.0, 650.0), 3),
+}
+
+
 def main(argv: list[str] | None = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_common_args(p)
@@ -77,41 +112,14 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     device = resolve_device(args.device)
 
-    def size(H, W, D):
-        (H, W), D = args.hw or (H, W), args.numdepth or D
-        return H, W, D, np.linspace(425, 905, D).astype(np.float32)
-
-    def forward(V, H, W, D, projs, dv) -> dict:
-        sec = bench_forward(V, H, W, projs, dv, device, args.iters)
-        return {"sec_per_depthmap": sec, "shape": f"{V}v {D}d {H}x{W}"}
-
     results = {}
-    # 1. DTU small
-    H, W, D, dv = size(512, 640, 96)
-    K = np.array([[W * 0.7, 0, W / 8], [0, W * 0.7, H / 8], [0, 0, 1]], np.float32)
-    results["dtu_small_3v_96d_512x640"] = forward(3, H, W, D, translation_rig(3, 2.0, K / 4.0), dv)
-
-    # 2. DTU full, and stage B: 49 saved views, 10 sources each (DTU's NviewFilter)
-    H, W, D, dv = size(864, 1152, 192)
-    K = np.array([[W * 0.7, 0, W / 8], [0, W * 0.7, H / 8], [0, 0, 1]], np.float32)
-    res = forward(5, H, W, D, translation_rig(5, 2.0, K / 4.0), dv)
-    res["filter_sec_per_view"] = bench_filter(49, H, W, ring_rig(49, 50.0, -600.0, 600.0, np.eye(3, dtype=np.float32)),
-                                              10, device)
-    results["dtu_full_5v_192d_864x1152"] = res
-
-    # 3. BDS8 49-camera ring: a reference camera and its 4 nearest ring neighbours
-    H, W, D, dv = size(512, 640, 192)
-    K = np.array([[W * 1.1, 0, W / 2], [0, W * 1.1, H / 2], [0, 0, 1]], np.float32)
-    res = forward(5, H, W, D, ring_rig(49, 150.0, -700.0, 700.0, K / 4.0)[[0, 1, 48, 2, 47]], dv)
-    res["filter_sec_per_view"] = bench_filter(49, H, W, ring_rig(49, 150.0, -700.0, 700.0,
-                                                                 np.eye(3, dtype=np.float32)), 10, device)
-    results["bds8_49cam_5v_192d_512x640"] = res
-
-    # 4. the bin's 4-camera rig (config 3's intrinsics)
-    res = forward(4, H, W, D, ring_rig(4, 120.0, -650.0, 650.0, K / 4.0), dv)
-    res["filter_sec_per_view"] = bench_filter(4, H, W, ring_rig(4, 120.0, -650.0, 650.0, np.eye(3, dtype=np.float32)),
-                                              3, device)
-    results["bin_4cam_4v_192d_512x640"] = res
+    for name, (V, H, W, D, projs, dv) in forward_rigs(args.hw, args.numdepth).items():
+        res = results[name] = {"sec_per_depthmap": bench_forward(V, H, W, projs, dv, device, args.iters),
+                               "shape": f"{V}v {D}d {H}x{W}"}
+        if name in FILTERS:
+            n_views, ring, n_src = FILTERS[name]
+            res["filter_sec_per_view"] = bench_filter(n_views, H, W, ring_rig(*ring, np.eye(3, dtype=np.float32)),
+                                                      n_src, device)
     results.update(platform_fields(device))
     return emit("configs", results, args.out)
 

@@ -41,19 +41,24 @@ import torch
 
 from ..data.synthetic import RingRig, SyntheticRig, make_eval_tree, write_scan_list
 from ..models import MVSNet, random_init_
-from . import REPO, add_common_args, child_env, emit, platform_fields, resolve_device
+from . import REPO, add_common_args, emit, platform_fields, resolve_device
 from .headline import SEED
 
 CONFIGS = ("dtu_full", "bds8_ring", "bin", "multi_bin", "serve")
 
 
+def make_rig(n_views: int, hw: tuple[int, int], ring: bool = False) -> SyntheticRig:
+    """The script's acquisition rig: the BDS8 ring (rotation-bearing
+    extrinsics) or the translation rig of the bin and DTU trees."""
+    if ring:
+        return RingRig(n_views=n_views, img_hw=hw, z0=700.0, slope_x=0.05, radius=150.0, height=-700.0,
+                       focal=1.1 * hw[1])
+    return SyntheticRig(n_views=n_views, img_hw=hw, baseline=2.0, z0=500.0, slope_x=0.15, focal=0.8 * hw[1])
+
+
 def build_tree(root: str, n_views: int, hw: tuple[int, int], ndepths: int, n_scans: int = 1,
                ring: bool = False) -> SyntheticRig:
-    if ring:  # the BDS8 acquisition geometry: rotation-bearing extrinsics
-        rig = RingRig(n_views=n_views, img_hw=hw, z0=700.0, slope_x=0.05, radius=150.0, height=-700.0,
-                      focal=1.1 * hw[1])
-    else:
-        rig = SyntheticRig(n_views=n_views, img_hw=hw, baseline=2.0, z0=500.0, slope_x=0.15, focal=0.8 * hw[1])
+    rig = make_rig(n_views, hw, ring)
     scans = [f"scan{i + 1}" for i in range(n_scans)]
     for scan in scans:
         make_eval_tree(root, scan=scan, rig=rig, ndepths=ndepths)
@@ -90,7 +95,7 @@ def eval_argv(root: str, ckpt: str, outdir: str, ngen: int, nfilter: int, numdep
 
 def _run(cmd: list[str], name: str, stdin: str | None = None) -> tuple[str, float]:
     t0 = time.time()
-    proc = subprocess.run(cmd, input=stdin, capture_output=True, text=True, timeout=3600, cwd=REPO, env=child_env())
+    proc = subprocess.run(cmd, input=stdin, capture_output=True, text=True, timeout=3600, cwd=REPO)
     total = time.time() - t0
     if proc.returncode != 0:
         print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -180,6 +185,7 @@ def main(argv: list[str] | None = None) -> dict:
                    help="every configuration's image size (tests only)")
     p.add_argument("--numdepth", type=int, default=192, help="depth planes (tests only)")
     args = p.parse_args(argv)
+    args.out = os.path.abspath(args.out)  # the children run in REPO
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     extra = ["--device", args.device] + (["--dtype", "bfloat16"] if on_card else [])

@@ -30,7 +30,7 @@ import tempfile
 import time
 
 from ..data.synthetic import SyntheticRig, make_dtu_tree, write_scan_list
-from . import REPO, add_common_args, child_env, emit, platform_fields, resolve_device
+from . import REPO, add_common_args, emit, platform_fields, resolve_device
 
 
 def build_tree(root: str, n_views: int, hw: tuple[int, int], ndepths: int) -> SyntheticRig:
@@ -54,6 +54,7 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--hw", type=int, nargs=2, default=(512, 640), metavar=("H", "W"), help="image size (tests only)")
     p.add_argument("--numdepth", type=int, default=192, help="depth planes (tests only)")
     args = p.parse_args(argv)
+    args.out = os.path.abspath(args.out)  # the children run in REPO
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     h, w = args.hw
@@ -80,7 +81,7 @@ def main(argv: list[str] | None = None) -> dict:
         "--device", args.device,
     ] + (["--dtype", "bfloat16"] if on_card else [])
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=3600, cwd=REPO, env=child_env())
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=3600, cwd=REPO)
     proc_wall = time.time() - t0
     if proc.returncode != 0:
         print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -108,7 +109,7 @@ def main(argv: list[str] | None = None) -> dict:
             [sys.executable, "-m", "scene_3dreconstruction_mvsnet_tpu_torch.bench.train_step",
              "--batch", str(args.batch_size), "--sustained", "--device", args.device, "--out", args.out,
              "--hw", str(h), str(w), "--numdepth", str(args.numdepth)],
-            capture_output=True, text=True, timeout=1800, cwd=REPO, env=child_env(),
+            capture_output=True, text=True, timeout=1800, cwd=REPO,
         )
         m = re.search(r"sustained .*: ([\d.]+) s/step", probe.stdout)
         if probe.returncode != 0 or not m:

@@ -120,7 +120,10 @@ def save_depth(
     on a card, each batch's ``device_ms`` from CUDA events around the forward
     (from its first kernel's start to its last one's end, idle gaps included);
     ``device_busy_frac``, the sum of the forward spans over stage A's wall
-    (the spans from the host clock on the CPU, launch to results).
+    (the spans from the host clock on the CPU, launch to results). A span
+    counts the idle gaps inside the forward as busy; the spans follow one
+    another inside stage A, so a share above 1 means a miscount, and it is
+    reported as it is.
 
     ``batch_size`` > 1 batches reference views; the trailing partial batch
     is padded by repeating its last view (the padding is not written).
@@ -295,9 +298,10 @@ def save_depth(
     stage_a_wall = sum(phases.values())
     spans = [ms / 1e3 for ms in device_ms] or host_spans
     if spans and stage_a_wall > 0:
-        device_busy_frac = min(1.0, sum(spans) / stage_a_wall)
-        print(f"device busy: {sum(spans):.3f} s of forward spans ({'CUDA events' if device_ms else 'host clock'}) "
-              f"over {len(spans)} batches / stage A = {device_busy_frac:.1%}")
+        device_busy_frac = sum(spans) / stage_a_wall
+        print(f"device busy: {sum(spans):.3f} s of forward spans ({'CUDA events' if device_ms else 'host clock'}; "
+              f"idle gaps inside a forward count as busy) over {len(spans)} batches / stage A = "
+              f"{device_busy_frac:.1%}")
 
     if accumulate_cloud and vertices:
         all_pts, all_cols = np.concatenate(vertices), np.concatenate(vertex_colors)

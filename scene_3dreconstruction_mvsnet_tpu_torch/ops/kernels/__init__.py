@@ -6,17 +6,26 @@ first use it is compiled with ``nvcc`` for ``sm_90a`` into
 covers the source, the ``csrc/*.cuh`` headers it includes and the flags, so an
 edited source or shared header rebuilds. Nothing here is built or imported
 from a GPU toolchain when the module is imported.
+
+Each wrapper counts its kernel's launches in its module's ``LAUNCHES``
+(``launch_counts`` reads them all). A process started with
+``MVSNET_TORCH_LAUNCH_LOG=<file>`` in its environment appends its counts to
+that file as one JSON line when it exits, so that a parent can see which
+kernels its child processes (the CLIs the benches run) launched.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -115,3 +124,49 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtypes, ndim: int, device, ali
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+LAUNCH_LOG_ENV = "MVSNET_TORCH_LAUNCH_LOG"
+KERNEL_NAMES = ("sweep_variance", "sweep_variance_emit", "softmax_regression", "paired_grad", "warp_grad",
+                "conv0_fused", "plane_sweep_warp")
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel's launches in this process since the last reset, by name;
+    ``sweep_variance`` counts K1's launches without the emitted warps,
+    ``sweep_variance_emit`` those with them."""
+    from . import conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance, warp_grad
+
+    return {"sweep_variance": sweep_variance.LAUNCHES - sweep_variance.EMIT_LAUNCHES,
+            "sweep_variance_emit": sweep_variance.EMIT_LAUNCHES, "softmax_regression": softmax_regression.LAUNCHES,
+            "paired_grad": paired_grad.LAUNCHES, "warp_grad": warp_grad.LAUNCHES,
+            "conv0_fused": conv0_fused.LAUNCHES, "plane_sweep_warp": plane_sweep_warp.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from . import conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance, warp_grad
+
+    for module in (conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance, warp_grad):
+        module.LAUNCHES = 0
+    sweep_variance.EMIT_LAUNCHES = 0
+
+
+def read_launch_log(path: str | os.PathLike) -> dict[str, int]:
+    """The launches that the processes logging to ``path`` made, summed
+    (zeros when none wrote there)."""
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    if os.path.exists(path):
+        for line in Path(path).read_text().splitlines():
+            for name, n in json.loads(line)["launches"].items():
+                total[name] += n
+    return total
+
+
+def _log_launches(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv, "launches": launch_counts()}) + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_log_launches, os.environ[LAUNCH_LOG_ENV])

@@ -7,6 +7,7 @@ CLI log lines the end-to-end benches parse, and stage A's device-busy line.
 
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -31,34 +32,26 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 SMALL = ["--device", "cpu", "--hw", "64", "96", "--numdepth", "16"]
 
-# the keys of the JAX scripts' results: bench.py:166-183 and scripts/bench_configs.py:169-209
-HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline", "config", "rig", "seconds_per_depthmap", "timing",
-                 "platform"}
-CONFIG_KEYS = {
-    "dtu_small_3v_96d_512x640": {"sec_per_depthmap"},
-    "dtu_full_5v_192d_864x1152": {"sec_per_depthmap", "filter_sec_per_view"},
-    "bds8_49cam_5v_192d_512x640": {"sec_per_depthmap", "filter_sec_per_view"},
-    "bin_4cam_4v_192d_512x640": {"sec_per_depthmap", "filter_sec_per_view"},
-}
-# scripts/bench_e2e_eval.py's run rows (:144-178) and serve row (:231-238, with eval.py's summary keys), and
-# scripts/bench_train_e2e.py's (:118-131, 145-146)
-E2E_RUN_KEYS = {"stage_a_wall_s", "stage_b_wall_s", "pipeline_wall_s", "proc_wall_s", "steady_gen_s_per_view",
-                "device_busy_pct", "d2h_channel_setup_s", "d2h_exposed_s", "stage_a_phases", "views", "config",
-                "pipeline_work_s", "views_per_s_end_to_end", "views_per_s_pipeline_work"}
-SERVE_KEYS = {"mode", "config", "proc_wall_s", "d2h_channel_setup_s", "scans", "views", "wall_s", "views_per_s",
-              "views_per_s_sustained"}
-TRAIN_E2E_KEYS = {"config", "epoch0_cold", "steady_epoch", "steady_s_per_step", "proc_wall_s", "fixture_gen_s",
-                  "d2h_channel_setup_s", "device_s_per_step", "host_share"}
-BUSY_RE = r"stage A = ([\d.]+)%"  # scripts/bench_e2e_eval.py:151
-
 
 def _load_root_script(path: Path):
-    """A root bench script as a module (its module scope imports only numpy
-    and the standard library)."""
-    spec = importlib.util.spec_from_file_location(f"_jax_{path.stem}", path)
+    """A root script as a module (the bench scripts' module scope imports
+    only numpy and the standard library, chip_smoke.py's only the standard
+    library)."""
+    spec = importlib.util.spec_from_file_location(f"_root_{path.stem}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+# the keys of the JAX scripts' results, as chip_smoke.py's bench phase holds the card's lines to them
+SMOKE = _load_root_script(REPO / "chip_smoke.py")
+HEADLINE_KEYS = SMOKE.BENCH_HEADLINE_KEYS
+CONFIG_KEYS = {path[0]: keys for path, keys in SMOKE.BENCH_CONFIG_KEYS.items() if path}
+E2E_RUN_KEYS = SMOKE.BENCH_E2E_RUN_KEYS
+SERVE_KEYS = SMOKE.BENCH_E2E_EVAL_KEYS[("bin_serve_10scan",)]
+TRAIN_E2E_KEYS = SMOKE.BENCH_TRAIN_E2E_KEYS
+ON_A_CARD = {"device"}  # the card's name and power limit: None on the CPU
+BUSY_RE = r"stage A = ([\d.]+)%"  # scripts/bench_e2e_eval.py:151
 
 
 def _last_json(capsys) -> dict:
@@ -100,7 +93,7 @@ def test_headline_prints_bench_py_keys(tmp_path, capsys, fused_conv0):
     result = headline.main(argv)
     line = _last_json(capsys)
     assert line == json.loads(json.dumps(result))
-    assert HEADLINE_KEYS | {"backend", "device"} <= set(line)
+    assert HEADLINE_KEYS <= set(line)
     assert line["platform"] == "cpu" and line["backend"] == "torch" and line["device"] is None
     assert line["value"] > 0 and abs(line["seconds_per_depthmap"] * line["value"] - 1) < 1e-9
     assert line["vs_baseline"] is None  # the CPU reference's number is for the headline's sizes only
@@ -131,7 +124,7 @@ def test_train_step_prints_its_lines(tmp_path, capsys, flags):
     assert bool(m) == ("--sustained" in flags)
     if m:
         assert float(m.group(1)) == pytest.approx(res["s_per_step"], abs=1e-4)
-    assert {"mode", "config", "sustained", "first_s", "first_loss", "s_per_step", "platform"} <= set(res)
+    assert SMOKE.BENCH_TRAIN_STEP_KEYS | {"mode", "config", "sustained"} <= set(res)
     assert res["s_per_step"] > 0 and np.isfinite(res["first_loss"]) and f"remat={'--remat' in flags}" in res["mode"]
     for flag in ("--xla", "--no-paired"):
         with pytest.raises(SystemExit):
@@ -146,6 +139,7 @@ def test_profile_input_measures_the_forward(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "per-sample __getitem__ (5 views)" in out and "forward at this res on cpu (measured" in out
     res = res["profile_input"]
+    assert SMOKE.BENCH_PROFILE_KEYS <= set(res)
     for k in ("per_sample_ms", "decode_ms", "decode_prep_ms", "forward_ms", "host_over_device", "npy_read_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
 
@@ -196,7 +190,7 @@ def test_train_e2e_parses_every_field(tmp_path):
     planes, train_cli and the step-alone probe in processes of their own:
     every field of the JAX script's row is there and none is null."""
     res = train_e2e.main(SMALL + ["--views", "4", "--epochs", "1", "--out", str(tmp_path)])["train_e2e"]
-    assert TRAIN_E2E_KEYS <= set(res) and all(res[k] is not None for k in TRAIN_E2E_KEYS), res
+    assert TRAIN_E2E_KEYS <= set(res) and all(res[k] is not None for k in TRAIN_E2E_KEYS - ON_A_CARD), res
     assert res["steady_epoch"]["samples"] == 28 and res["steady_s_per_step"] > 0 and res["device_s_per_step"] > 0
 
 
@@ -226,3 +220,24 @@ def test_headline_without_a_card_exits_nonzero():
                           cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "{" not in proc.stdout
     assert "does not fall back to the CPU" in proc.stderr
+
+
+def test_child_processes_log_their_launches(tmp_path):
+    """A process started with MVSNET_TORCH_LAUNCH_LOG appends its kernel
+    launch counts to that file at exit, and read_launch_log sums the lines:
+    how chip_smoke.py sees the kernels the benches' CLIs launch."""
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import kernels
+
+    log = tmp_path / "launches.jsonl"
+    assert kernels.read_launch_log(log) == dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    child = ("from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import softmax_regression as k2, "
+             "sweep_variance as k1\n"
+             "k1.LAUNCHES, k1.EMIT_LAUNCHES, k2.LAUNCHES = {}, 2, {}\n")
+    env = dict(os.environ, **{kernels.LAUNCH_LOG_ENV: str(log)})
+    for k1, k2 in ((5, 1), (2, 4)):
+        subprocess.run([sys.executable, "-c", child.format(k1, k2)], cwd=REPO, env=env, check=True, timeout=120)
+    total = kernels.read_launch_log(log)
+    assert total == dict(dict.fromkeys(kernels.KERNEL_NAMES, 0), sweep_variance=3, sweep_variance_emit=4,
+                         softmax_regression=5)
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNEL_NAMES, 0)
