@@ -170,3 +170,77 @@ def test_bench_kernel_cases_are_the_bench_shapes(smoke, tmp_path):
     depth_min, interval = map(float, (tmp_path / "cam.txt").read_text().split()[-2:])
     np.testing.assert_allclose(dv[:, [0, 1]], [[depth_min, depth_min + interval]] * 2, rtol=1e-6)
     assert all(p.dtype == np.float32 and np.isfinite(p).all() for p in samples)
+
+
+@pytest.mark.parametrize("name,n_cams,hw,views,pairfile", [
+    ("bds8", 49, (48, 60), (30, 34, 46, 47), "eval_pair_4x4_30-34-46-47.txt"),
+    ("bin", 4, (48, 60), None, "pair.txt"),
+    ("dtu", 11, (60, 80), None, "pair.txt"),
+])
+def test_ring_scene_writes_the_registry_layouts(smoke, tmp_path, name, n_cams, hw, views, pairfile):
+    """The recipes phase's eval trees: RingScene.write_registry_tree writes
+    the files that the CPU tests' registry_tree writes from the JAX
+    package's RingRig for the bds8, bin and DTU registries (the same names,
+    the pair and cam files byte for byte, the same image pixels), at the
+    same --testpath."""
+    from tests.test_torch_io import registry_tree
+
+    scan = "scan1"
+    ours = smoke.RingScene(n_cams, *hw).write_registry_tree(str(tmp_path / "ours"), name, scan, 192, views, pairfile)
+    theirs = registry_tree(tmp_path / "jax", name, RingRig(n_views=n_cams, img_hw=hw), scan, 192, views=views,
+                           pairfile=pairfile)
+    assert Path(ours).relative_to(tmp_path / "ours") == theirs.relative_to(tmp_path / "jax")
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "ours") for p in (tmp_path / "ours").rglob("*") if p.is_file())
+    assert len(files) == 1 + 2 * len(views or range(n_cams))
+    for f in files:
+        if f.suffix == ".png":
+            np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "ours" / f)),
+                                          np.asarray(Image.open(tmp_path / "jax" / f)))
+        else:
+            assert (tmp_path / "ours" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+
+
+def test_dtu_registry_tree_loads_at_the_registrys_size(smoke, tmp_path):
+    """eval_DTU's tree as the recipes phase writes it (1200x1600 images, 1-based
+    names, the pair file at the root) loads through dataloader_eval with the
+    dtu registry and no overrides: rescaled to 600x800, then cropped to
+    576x800 (a multiple of 32; 144x200 features), the sample the JAX
+    package's dataloader_eval gives (tolerance 0)."""
+    from scene_3dreconstruction_mvsnet_tpu import data as jdata
+    from scene_3dreconstruction_mvsnet_tpu_torch import data as tdata
+    from scene_3dreconstruction_mvsnet_tpu_torch.eval_cli import DICT_CAM_SUBFOLDER, DICT_IMG_RES, DICT_IMG_SUBFOLDER
+
+    root = smoke.RingScene(3, 1200, 1600).write_registry_tree(str(tmp_path), "dtu", "scan1", 192)
+    (tmp_path / "test.txt").write_text("scan1\n")
+    args = (root, str(tmp_path / "test.txt"), "test", 3, 192, 1.06)
+    kw = {"cam_subfolder": DICT_CAM_SUBFOLDER["dtu"], "img_subfolder": DICT_IMG_SUBFOLDER["dtu"],
+          "img_res": DICT_IMG_RES["dtu"], "dataset_name": "dtu", "emit_u8": True}
+    ours, theirs = tdata.find_dataset_def("dataloader_eval")(*args, **kw), jdata.find_dataset_def("dataloader_eval")(
+        *args, **kw)
+    assert len(ours) == len(theirs) == 3
+    got, want = ours[2], theirs[2]
+    assert got["imgs"].shape == (3, 576, 800, 3) and got["imgs"].dtype == np.uint8 and got["imgs"].std() > 0
+    for k, v in got.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+        else:
+            assert v == want[k], k
+
+
+def test_recipe_kernel_shapes_are_the_presets(smoke):
+    """The shapes at which the recipes phase holds K1 and K2 (and, at the
+    train_BlenderDS step's, K1-emit, K3-terms and K3) to their plain
+    versions: (B, V, D, feature height, width, dtype) of each preset."""
+    assert smoke.recipe_kernel_shapes() == {
+        "train_BlenderDS step": (3, 5, 192, 128, 160, "bfloat16"),
+        "train_BlenderDS test pass": (3, 5, 192, 128, 160, "bfloat16"),
+        "eval_BlenderDS": (1, 4, 192, 128, 160, "float32"),
+        "eval_binpicking": (1, 4, 192, 128, 160, "float32"),
+        "eval_DTU": (1, 5, 192, 144, 200, "float32"),
+        "eval_DTU --dtype bfloat16": (1, 5, 192, 144, 200, "bfloat16"),
+    }
+    assert set(smoke.RECIPE_EVAL_TREES) == {"eval_BlenderDS", "eval_binpicking", "eval_DTU"}
+    bds8 = smoke.RECIPE_EVAL_TREES["eval_BlenderDS"]
+    assert bds8[0] == "bds8" and bds8[1] == 49 and bds8[3] == (30, 34, 46, 47)
+    assert smoke.RECIPE_EVAL_TREES["eval_DTU"][1] >= 11  # NviewFilter 10 sources and the reference

@@ -5,6 +5,7 @@ and write through these, so they must agree exactly (tolerance 0)."""
 
 import os
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from scene_3dreconstruction_mvsnet_tpu.io import ply as jply
 from scene_3dreconstruction_mvsnet_tpu.utils.misc import get_powers as j_get_powers
 from scene_3dreconstruction_mvsnet_tpu_torch import data as tdata
 from scene_3dreconstruction_mvsnet_tpu_torch import io as tio
+from scene_3dreconstruction_mvsnet_tpu_torch.eval_cli import DICT_CAM_SUBFOLDER, DICT_IMG_RES, DICT_IMG_SUBFOLDER
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
 from scene_3dreconstruction_mvsnet_tpu_torch.utils.misc import get_powers
 
@@ -140,6 +142,33 @@ def test_small_helpers():
 
 # -- datasets and the loader ---------------------------------------------------------
 
+BDS8_PAIRFILE, BDS8_VIEWS = "eval_pair_4x4_30-34-46-47.txt", (30, 34, 46, 47)  # the eval_BlenderDS preset's
+
+
+def registry_tree(root, dataset_name, rig, scan, ndepths, views=None, pairfile="pair.txt"):
+    """make_eval_tree's files for ``views`` of ``rig`` (default all; the cam
+    files' depth range is the whole rig's) in the layout of eval.py's
+    registry for ``dataset_name``: the camera folder and image names of
+    DICT_CAM_SUBFOLDER and DICT_IMG_SUBFOLDER (DTU's images count from 1),
+    the pair file ``pairfile`` at the tree's root, or two directories above
+    it for the bin. The pair file keeps each reference view's sources among
+    ``views`` in the rig's order. Returns the tree's root (the CLI's
+    --testpath)."""
+    views = list(range(rig.n_views)) if views is None else list(views)
+    testpath = Path(root) / "acquisition" / "rig" if dataset_name == "bin" else Path(root)
+    pair_dir = testpath / ".." / ".." if dataset_name == "bin" else testpath
+    for v in views:
+        cam = testpath / DICT_CAM_SUBFOLDER[dataset_name] / f"{v:0>8}_cam.txt"
+        img = testpath / DICT_IMG_SUBFOLDER[dataset_name].format(scan, v + 1 if dataset_name == "dtu" else v)
+        for path in (cam, img):
+            path.parent.mkdir(parents=True, exist_ok=True)
+        rig.write_cam_file(str(cam), v, ndepths)
+        jimages.save_image_u8(str(img), rig.render(v))
+    pairs = [(ref, [s for s in srcs if s in views]) for ref, srcs in rig.pair_list() if ref in views]
+    jcams.write_pair_file(str(pair_dir / pairfile), pairs)
+    return testpath
+
+
 @pytest.fixture(scope="module")
 def trees(tmp_path_factory):
     """Every dataset layout from the JAX package's synthetic scenes: DTU
@@ -159,6 +188,12 @@ def trees(tmp_path_factory):
                     bds / "Rectified_1200x1600" / "scan1" / f"rect_C{v:0>3}_L00.png")
     for name in ("dtu", "blender", "eval", "dtu_eval", "bds_eval"):
         synthetic.write_scan_list(str(root / name / "list.txt"), ["scan1"] if name != "blender" else ["scene_000"])
+    # the bds8 and bin registries' own layouts at their 512x640: 4 of a 49-camera ring, and a 4-camera ring
+    bds8 = registry_tree(root / "bds8", "bds8", synthetic.RingRig(n_views=49), "scene_000", 16,
+                         views=BDS8_VIEWS, pairfile=BDS8_PAIRFILE)
+    synthetic.write_scan_list(str(bds8 / "list.txt"), ["scene_000"])
+    bin_ = registry_tree(root / "bin", "bin", synthetic.RingRig(n_views=4), "binpicking", 16)
+    synthetic.write_scan_list(str(bin_ / "list.txt"), ["binpicking"])
     return root
 
 
@@ -172,6 +207,12 @@ DATASETS = {
                                                 "img_subfolder": "Rectified/{}/rect_C{:0>3}_L00.png"}),
     "dtu_yao_eval": ("dtu_eval", "test", 3, {}),
     "blender_eval": ("bds_eval", "test", 2, {}),
+    # eval.py's registries, no overrides: the bin's pair file two directories up
+    **{f"dataloader_eval-{name}": (folder, "test", 4, {
+        "cam_subfolder": DICT_CAM_SUBFOLDER[name], "img_subfolder": DICT_IMG_SUBFOLDER[name],
+        "img_res": DICT_IMG_RES[name], "dataset_name": name, **extra})
+       for name, folder, extra in (("bds8", "bds8", {"pairfile": BDS8_PAIRFILE}),
+                                   ("bin", "bin/acquisition/rig", {}))},
 }
 
 

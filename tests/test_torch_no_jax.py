@@ -107,7 +107,10 @@ assert {"scene_3dreconstruction_mvsnet_tpu_torch.train_cli", "scene_3dreconstruc
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.collectives",
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.sharding",
         "scene_3dreconstruction_mvsnet_tpu_torch.parallel.halo",
-        "scene_3dreconstruction_mvsnet_tpu_torch.data.synthetic"} <= set(sys.modules)
+        "scene_3dreconstruction_mvsnet_tpu_torch.data.synthetic",
+        "scene_3dreconstruction_mvsnet_tpu_torch.recipes"} <= set(sys.modules)
+from scene_3dreconstruction_mvsnet_tpu_torch import recipes
+assert recipes.preset_argv("train_BlenderDS")[:2] == ["--mode=train", "--dataset=blender"]
 # the bench entry points: the headline at a small size
 from scene_3dreconstruction_mvsnet_tpu_torch.bench import headline
 line = headline.main(["--device", "cpu", "--hw", "32", "32", "--numdepth", "8", "--iters", "1",
