@@ -120,6 +120,14 @@ exit code is not 0):
              --dtype bfloat16 on the registries' own layouts (every file, K1
              and K2 once per view, one view held against the plain path on
              the card). These kernels' rows close the kernels' line.
+ 13. api     the JAX package's API ported last: geometric_filter_stack for
+             every reference view of the eval phase's 16-view scan (its
+             mask count equal to fuse_reference_view's; ms a view for both),
+             Hourglass3d(8) in bf16 eval mode on CostRegNet's conv0 output
+             at the headline ([1, 8, 192, 216, 288]; ms, peak memory), and
+             in f32 on a [1, 8, 32, 64, 64] crop against the CPU within
+             1e-4 x max|y|; no hand-written kernel may launch. It runs
+             after phase 9.
 The kernels' JSON line, then {"ok": true, "device": {...}} close the output.
 
 There is no CPU fallback: without a CUDA device the script exits at once.
@@ -210,6 +218,7 @@ SWEEP_REQUESTS, SWEEP_LOSS_RTOL = 3, 1e-4
 # the plain step repeated (the floor, which the phase logs) 4.31e-6: the
 # limit is 3.5x the largest reading
 REMAT_GRAD_TOL = 2e-5
+API_HOURGLASS_TOL = 1e-4  # x max|y|: f32 Hourglass3d on the card against the CPU (test_cost_reg_net_matches_jax's)
 RANK_TIMEOUT_S = 600  # a spawned gloo rank's time limit
 # the bench phase: the trims of train_e2e (4 views: 28 samples an epoch, 2
 # epochs) and e2e_eval (the bin and serve configurations; --views is
@@ -2015,6 +2024,101 @@ def phase_parallel(repo: Path, gen, initial: dict, plain_step_s: float, scan_map
     return extra
 
 
+def phase_api(gen, scan_maps: tuple) -> dict:
+    """The JAX package's API ported last, on the card, with the launch counts
+    set to 0 before and read after (the path runs no hand-written kernel):
+    geometric_filter_stack for every reference view of the eval phase's
+    16-view scan (its count held equal to fuse_reference_view's), and
+    Hourglass3d(8) in bf16 eval mode on CostRegNet's conv0 output at the
+    headline (ms, peak), and in f32 on a crop against the same block on the
+    CPU. Returns no kernel fields."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.eval import fuse_reference_view, geometric_filter_stack
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import Hourglass3d, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    kernels.reset_launch_counts()
+    depths, confs, Ks, Es, pair_data, view_ids = scan_maps
+    row = {v: i for i, v in enumerate(view_ids)}
+    kw = dict(condmask_pixel=6.0, condmask_depth=0.5)  # the eval phase's loosened filter
+    stack_ms, fused_ms, counted = [], [], 0
+    for ref_view, src_views in pair_data:
+        r, srcs = row[ref_view], [row[v] for v in src_views[:10]]
+        args = [t.to(dev) for t in (torch.from_numpy(depths[r]), torch.from_numpy(Ks[r]), torch.from_numpy(Es[r]),
+                                    torch.from_numpy(depths[srcs]), torch.from_numpy(Ks[srcs]),
+                                    torch.from_numpy(Es[srcs]))]
+        with torch.inference_mode():
+            geometric_filter_stack(*args, **kw)  # warm
+            stack_ms.append(cuda_time_ms(lambda: geometric_filter_stack(*args, **kw), 5))
+            geo_sum, _, masks = geometric_filter_stack(*args, **kw)
+        t0 = time.perf_counter()
+        fused = fuse_reference_view(depths[r], confs[r], Ks[r], Es[r], depths[srcs], Ks[srcs], Es[srcs],
+                                    photomask=0.0, geomask=1, device=dev, **kw)
+        fused_ms.append(1e3 * (time.perf_counter() - t0))
+        if not np.array_equal(geo_sum.cpu().numpy(), fused["geo_mask_sum"]) or masks.shape[0] != len(srcs):
+            raise AssertionError(f"geometric_filter_stack's count differs from fuse_reference_view's for view "
+                                 f"{ref_view}")
+        counted += int(geo_sum.sum())
+    log("api", f"geometric_filter_stack: {len(pair_data)} reference views of the eval phase's scan, geo_mask_sum "
+               f"equal to fuse_reference_view's for every one ({counted} consistent (pixel, source) pairs); "
+               f"ms a reference view: geometric_filter_stack {statistics.median(stack_ms):.3f} (median; CUDA events, "
+               f"device tensors in), fuse_reference_view {statistics.median(fused_ms):.3f} (median; host clock, numpy "
+               f"in and out, photo/geo/final masks and the fused depth too)")
+
+    # Hourglass3d(8) on CostRegNet's conv0 output at the headline: bf16, eval
+    block = random_init_(Hourglass3d(8), torch.Generator().manual_seed(SEED)).eval()
+    cpu_block = Hourglass3d(8).eval()
+    cpu_block.load_state_dict(block.state_dict())
+    block.to(dev)
+    x = torch.relu(torch.randn((1, 8, D, H // 4, W // 4), generator=gen, device=dev)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        y = block(x)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = cuda_time_ms(lambda: block(x), 5)
+    if y.shape != x.shape or y.dtype != torch.bfloat16 or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"Hourglass3d gave {tuple(y.shape)} {y.dtype} (finite: {bool(torch.isfinite(y).all())})")
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        block(x)
+        torch.cuda.synchronize()
+    by_kernel: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:3]
+    log("api", f"Hourglass3d(8), bf16 eval, [1, 8, {D}, {H // 4}, {W // 4}]: {ms:.3f} ms a forward (CUDA events, "
+               f"mean of 5 after one), peak {peak:.3f} GiB above its input; device time of one forward "
+               f"{sum(by_kernel.values()):.3f} ms (profiler), the largest kernels: "
+               + "; ".join(f"{name[:60]} {t:.3f} ms" for name, t in top))
+    del x, y
+
+    # f32 on a crop: the card (TF32 off) against the CPU
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the f32 comparison")
+    crop = torch.randn((1, 8, 32, 64, 64), generator=torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        want = cpu_block(crop)
+        got = block(crop.to(dev)).cpu()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    log("api", f"Hourglass3d(8) f32 on [1, 8, 32, 64, 64], the card against the CPU: max|err| {err:.3e}, limit "
+               f"{API_HOURGLASS_TOL:.0e} x {scale:.3e}")
+    if not err <= API_HOURGLASS_TOL * scale:
+        raise AssertionError("Hourglass3d on the card disagrees with the CPU")
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"the api phase launched hand-written kernels: {launched}")
+    log("api", f"phase done in {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
+    return {}
+
+
 def _sweep_rank(rank: int, port: int, work: str, world: int) -> None:
     """One rank of the sweep phase, sharing cuda:0 with the others over gloo.
     With 2 ranks (data=1 x sweep=2): the headline request (96 planes a rank)
@@ -3021,6 +3125,7 @@ def main() -> None:
     extra = phase_dtu(repo, gen)  # K1 and K2 on evalDTU.py's legacy path, f32 at 1184x1600
     for more in (remat, phase_train_extras(repo, gen, plain_step_s),  # refine, dumps (K5), profile
                  phase_parallel(repo, gen, initial, plain_step_s, scan_maps),  # gloo, NCCL, sharded stage A and B
+                 phase_api(gen, scan_maps),  # geometric_filter_stack, Hourglass3d
                  phase_sweep(repo, gen, initial),  # the depth planes split over 2 and over 2x2 gloo ranks
                  phase_bench(repo, gen)):  # the port's bench entry points
         for kernel, fields in more.items():

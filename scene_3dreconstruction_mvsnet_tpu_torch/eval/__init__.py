@@ -6,16 +6,31 @@ photometric and geometric consistency and fuses them into a point cloud
 the port's ``io`` and ``data`` packages."""
 
 from .depth_gen import save_depth
-from .filtering import check_geometric_consistency, fuse_reference_view, fuse_scan, reproject_with_depth
+from .filtering import (
+    check_geometric_consistency,
+    fuse_reference_view,
+    fuse_scan,
+    geometric_filter_stack,
+    reproject_with_depth,
+)
 from .fusion import filter_depth
-from .scene_kit import BBox, get_frame_bbox, postprocess_cloud, remove_statistical_outliers, voxel_down_sample
+from .scene_kit import (
+    BBox,
+    camera_poses,
+    get_frame_bbox,
+    postprocess_cloud,
+    remove_statistical_outliers,
+    voxel_down_sample,
+)
 
 __all__ = [
     "BBox",
+    "camera_poses",
     "check_geometric_consistency",
     "filter_depth",
     "fuse_reference_view",
     "fuse_scan",
+    "geometric_filter_stack",
     "get_frame_bbox",
     "postprocess_cloud",
     "remove_statistical_outliers",

@@ -98,6 +98,27 @@ def check_geometric_consistency(
     return mask, torch.where(mask, depth_reproj, 0.0), x_src, y_src
 
 
+def geometric_filter_stack(
+    depth_ref: torch.Tensor,
+    intrinsics_ref: torch.Tensor,
+    extrinsics_ref: torch.Tensor,
+    depths_src: torch.Tensor,
+    intrinsics_src: torch.Tensor,
+    extrinsics_src: torch.Tensor,
+    condmask_pixel: float = 1.0,
+    condmask_depth: float = 0.01,
+):
+    """One reference view [H, W] against all its source views at once:
+    depths_src [N, H, W], intrinsics_src [N, 3, 3], extrinsics_src [N, 4, 4]
+    -> (geo_mask_sum int32 [H, W], depth_reproj_sum [H, W], per-view masks
+    bool [N, H, W])."""
+    masks, depths_reproj, _, _ = check_geometric_consistency(
+        depth_ref, intrinsics_ref, extrinsics_ref, depths_src, intrinsics_src, extrinsics_src,
+        condmask_pixel, condmask_depth,
+    )
+    return masks.sum(dim=0, dtype=torch.int32), depths_reproj.sum(dim=0), masks
+
+
 def _fuse_refs(d_ref, conf_ref, K_ref, E_ref, d_src, K_src, E_src, src_valid,
                photomask, geomask, condmask_pixel, condmask_depth):
     """R reference views [R, H, W] against their N source views [R, N, H, W]

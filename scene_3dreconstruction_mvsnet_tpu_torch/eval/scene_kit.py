@@ -1,10 +1,11 @@
-"""Point-cloud post-processing of the fused cloud: crop to the bin's bounding
-box, statistical outlier removal, voxel downsampling.
+"""Scene kit: the bin's bounding boxes, camera poses, and the post-processing
+of the fused cloud (crop to the bin's bounding box, statistical outlier
+removal, voxel downsampling).
 
-Counterpart of the cloud functions of
-``scene_3dreconstruction_mvsnet_tpu/eval/scene_kit.py`` (host numpy, as
-there; that module sits behind the JAX package's ``eval/__init__``, which
-imports JAX). Same algorithms, same random candidate draws, same results.
+Counterpart of ``scene_3dreconstruction_mvsnet_tpu/eval/scene_kit.py`` (host
+numpy, as there). Same algorithms, same random candidate draws, same
+results. The geometry is plain numpy; ``to_open3d`` hands a cloud to Open3D
+where that package is installed (it is imported only by that call).
 """
 
 from __future__ import annotations
@@ -44,6 +45,22 @@ def get_frame_bbox(
     wall = 20.0
     outer = BBox(inner.min_bound - wall, inner.max_bound + np.array([wall, wall, 0.0]))
     return inner, outer
+
+
+def invert_pose(rotation: np.ndarray, translation: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(R | t) world->camera -> camera->world (R^T | -R^T t)."""
+    rot = rotation.T
+    return rot, -rot @ translation
+
+
+def camera_poses(cam_extrinsics: list[np.ndarray]) -> list[dict]:
+    """Each camera's centre and optical axis in world coordinates (the
+    reference's arrow meshes, as data); the first camera is highlighted."""
+    cams = []
+    for i, E in enumerate(cam_extrinsics):
+        R, t = invert_pose(E[:3, :3], E[:3, 3])
+        cams.append({"center": R @ np.zeros(3) + t, "direction": R @ np.array([0.0, 0.0, 1.0]), "highlight": i == 0})
+    return cams
 
 
 def voxel_down_sample(
@@ -133,3 +150,18 @@ def postprocess_cloud(
         keep = remove_statistical_outliers(points, nb_neighbors, std_ratio)
         points, colors = points[keep], colors[keep] if colors is not None else None
     return voxel_down_sample(points, colors, voxel_size)
+
+
+def to_open3d(points: np.ndarray, colors: np.ndarray | None = None):
+    """The cloud as an ``open3d.geometry.PointCloud`` (colours above 1 are
+    taken as 0-255); raises ImportError where open3d is not installed."""
+    import open3d as o3d
+
+    pcd = o3d.geometry.PointCloud()
+    pcd.points = o3d.utility.Vector3dVector(np.asarray(points, dtype=np.float64))
+    if colors is not None:
+        c = np.asarray(colors, dtype=np.float64)
+        if c.max() > 1.0:
+            c = c / 255.0
+        pcd.colors = o3d.utility.Vector3dVector(c)
+    return pcd

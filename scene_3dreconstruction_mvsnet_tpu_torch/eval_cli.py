@@ -38,6 +38,7 @@ from .eval.fusion import filter_depth
 from .models import MVSNet
 from .parallel import local_devices
 from .train.checkpoint import load_model
+from .utils import print_args
 
 # flag -> why the port refuses it
 REFUSED = {
@@ -192,7 +193,7 @@ def main(argv: list[str] | None = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     print("argv:", sys.argv[1:] if argv is None else argv)
-    print("args:", vars(args))
+    print_args(args)
     if args.pallas_conv0 and args.dtype != "bfloat16":
         parser.error("--pallas_conv0 requires --dtype bfloat16")
     if args.testpath is None:

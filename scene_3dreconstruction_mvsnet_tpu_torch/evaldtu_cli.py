@@ -41,6 +41,7 @@ from .eval_cli import load_weights
 from .infer import make_infer_step
 from .io import read_camera_parameters, read_img, read_pair_file, read_pfm, save_mask, save_pfm, write_ply
 from .models import MVSNet
+from .utils import print_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,7 +193,7 @@ def main(argv: list[str] | None = None) -> dict:
     each scan's stage B wall and point count."""
     args = build_parser().parse_args(argv)
     print("argv:", sys.argv[1:] if argv is None else argv)
-    print("args:", vars(args))
+    print_args(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(

@@ -1,7 +1,8 @@
 """Projective geometry primitives on torch tensors (float32, batched).
 
 Counterpart of ``scene_3dreconstruction_mvsnet_tpu/geometry/transforms.py``:
-projection composition K@E, the general 4x4 inverse, the integer-corner pixel
+projection composition K@E, the exact rigid and the general 4x4 inverses, the
+projection of world points into a camera, the integer-corner pixel
 grid (the sweep and the consistency filter), the half-pixel-centre grid and
 the back-projection of depth maps to world points (fusion), and the
 plane-sweep source-view sampling coordinates. Functions take and return
@@ -17,6 +18,14 @@ def compose_projection_matrix(intrinsics: torch.Tensor, extrinsics: torch.Tensor
     """proj = [[K @ E[:3,:4]], [E[3,:4]]] for K [...,3,3], E [...,4,4] -> [...,4,4]."""
     top = torch.matmul(intrinsics, extrinsics[..., :3, :4])
     return torch.cat([top, extrinsics[..., 3:4, :4]], dim=-2)
+
+
+def invert_rigid(extrinsics: torch.Tensor) -> torch.Tensor:
+    """Invert rigid-body [..., 4, 4] (R | t) matrices exactly: (R^T | -R^T t)."""
+    rt = extrinsics[..., :3, :3].transpose(-1, -2)
+    top = torch.cat([rt, -matmul_f32(rt, extrinsics[..., :3, 3:4])], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extrinsics.dtype, device=extrinsics.device)
+    return torch.cat([top, bottom.expand(*top.shape[:-2], 1, 4)], dim=-2)
 
 
 def invert_4x4(mat: torch.Tensor) -> torch.Tensor:
@@ -84,6 +93,16 @@ def depth_to_world_points(
     if xy_scale != 1.0:
         world = torch.cat([world[..., :2] * xy_scale, world[..., 2:]], dim=-1)
     return world
+
+
+def project_points(
+    xyz_world_h: torch.Tensor, intrinsics: torch.Tensor, extrinsics: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project homogeneous world points [4, N] into a camera (K [3, 3], E
+    [4, 4]) -> (pixel coordinates xy [2, N], camera-frame depth [N])."""
+    cam = matmul_f32(extrinsics, xyz_world_h)[:3]
+    k_xyz = matmul_f32(intrinsics, cam)
+    return k_xyz[:2] / k_xyz[2:3], cam[2]
 
 
 def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor, ref_inv: torch.Tensor | None = None):

@@ -1,3 +1,3 @@
-from .from_jax import export_torch_state_dict, jax_variables_to_state_dict, load_jax_variables
+from .from_jax import export_block_state_dict, export_torch_state_dict, jax_variables_to_state_dict, load_jax_variables
 
-__all__ = ["export_torch_state_dict", "jax_variables_to_state_dict", "load_jax_variables"]
+__all__ = ["export_block_state_dict", "export_torch_state_dict", "jax_variables_to_state_dict", "load_jax_variables"]

@@ -7,6 +7,7 @@ from .cams import read_cam_file, read_camera_parameters, read_pair_file, write_c
 from .images import (
     read_img,
     read_img_cached,
+    read_mask,
     read_rescale_crop_img,
     read_rescale_crop_img_cached,
     resize_img,
@@ -21,6 +22,7 @@ __all__ = [
     "read_camera_parameters",
     "read_img",
     "read_img_cached",
+    "read_mask",
     "read_pair_file",
     "read_pfm",
     "read_ply",

@@ -25,6 +25,11 @@ def read_img(filename: str) -> np.ndarray:
     return np.asarray(Image.open(filename), dtype=np.float32) / 255.0
 
 
+def read_mask(filename: str) -> np.ndarray:
+    """A binary mask: True where the pixel exceeds 0.5 after 0-1 scaling."""
+    return read_img(filename) > 0.5
+
+
 def save_mask(filename: str, mask: np.ndarray) -> None:
     """A boolean mask as an 8-bit PNG, 255 where True."""
     if mask.dtype != np.bool_:

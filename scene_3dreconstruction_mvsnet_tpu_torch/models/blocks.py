@@ -152,15 +152,17 @@ class ConvBnReLU3D(nn.Module):
 
 class ConvTransposeBnReLU3D(nn.Sequential):
     """ConvTranspose3d(k=3, s=2, p=1, output_padding=1, no bias) + BatchNorm
-    + ReLU, the decoder stage of CostRegNet; output spatial dims are exactly
-    twice the input's. Children ``0`` and ``1`` carry the reference's keys."""
+    + optional ReLU, the decoder stage of CostRegNet (and, without the ReLU,
+    of Hourglass3d); output spatial dims are exactly twice the input's.
+    Children ``0`` and ``1`` carry the reference's keys."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, relu: bool = True):
         super().__init__(
             nn.ConvTranspose3d(in_channels, out_channels, 3, stride=2, padding=1,
                                output_padding=1, bias=False),
             BatchNorm3d(out_channels, eps=1e-5, momentum=0.1),
         )
+        self.relu = relu
 
     def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
         """With ``sweep``: y[2i] reads x[i] and y[2i+1] reads x[i] and
@@ -180,4 +182,48 @@ class ConvTransposeBnReLU3D(nn.Sequential):
                 x, _cast(deconv.weight, x.dtype), None, deconv.stride, deconv.padding,
                 (0, *deconv.output_padding[1:]),
             )[:, :, :planes]
-        return F.relu(bn(x))
+        x = bn(x)
+        return F.relu(x) if self.relu else x
+
+
+class BasicBlock(nn.Module):
+    """Stride-``stride`` residual block: ConvBnReLU, then conv + BN, plus the
+    input (through a 1x1 conv + BN when ``downsample``). The reference
+    defines it and MVSNet does not use it; children ``conv1``, ``conv2``
+    and ``downsample`` carry the reference's keys."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int, downsample: bool = False):
+        super().__init__()
+        self.conv1 = ConvBnReLU(in_channels, out_channels, 3, stride, 1)
+        self.conv2 = ConvBnReLU(out_channels, out_channels, 3, 1, 1, relu=False)
+        self.downsample = ConvBnReLU(in_channels, out_channels, 1, stride, 0, relu=False) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        return out + (x if self.downsample is None else self.downsample(x))
+
+
+class Hourglass3d(nn.Module):
+    """Two-level 3D hourglass on [B, C, D, H, W] with 1x1x1 redirect convs:
+    down twice with stride-2 convs, up twice with transposed convs, each
+    level's input added back before its ReLU. The reference defines it and
+    MVSNet does not use it; children carry the reference's keys (``dconv*``
+    are ConvTranspose3d + BatchNorm3d under ``0``/``1``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        c = channels
+        self.conv1a = ConvBnReLU3D(c, 2 * c, 3, 2, 1)
+        self.conv1b = ConvBnReLU3D(2 * c, 2 * c, 3, 1, 1)
+        self.conv2a = ConvBnReLU3D(2 * c, 4 * c, 3, 2, 1)
+        self.conv2b = ConvBnReLU3D(4 * c, 4 * c, 3, 1, 1)
+        self.dconv2 = ConvTransposeBnReLU3D(4 * c, 2 * c, relu=False)
+        self.dconv1 = ConvTransposeBnReLU3D(2 * c, c, relu=False)
+        self.redir1 = ConvBnReLU3D(c, c, 1, 1, 0, relu=False)
+        self.redir2 = ConvBnReLU3D(2 * c, 2 * c, 1, 1, 0, relu=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv1 = self.conv1b(self.conv1a(x))
+        conv2 = self.conv2b(self.conv2a(conv1))
+        dconv2 = F.relu(self.dconv2(conv2) + self.redir2(conv1))
+        return F.relu(self.dconv1(dconv2) + self.redir1(x))

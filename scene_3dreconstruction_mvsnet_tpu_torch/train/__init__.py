@@ -6,10 +6,11 @@ Counterpart of ``scene_3dreconstruction_mvsnet_tpu/train``."""
 
 from .checkpoint import find_latest, load_model, restore_checkpoint, save_checkpoint
 from .lr import make_scheduler, multistep_factor, parse_lrepochs
-from .metrics import depth_metrics
+from .metrics import abs_depth_error, depth_metrics, threshold_error_rate
 from .state import make_eval_step, make_optimizer, make_train_step
 
 __all__ = [
+    "abs_depth_error",
     "depth_metrics",
     "find_latest",
     "load_model",
@@ -21,4 +22,5 @@ __all__ = [
     "parse_lrepochs",
     "restore_checkpoint",
     "save_checkpoint",
+    "threshold_error_rate",
 ]

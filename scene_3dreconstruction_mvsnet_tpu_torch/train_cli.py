@@ -27,6 +27,8 @@ import sys
 import numpy as np
 import torch
 
+from .utils import print_args
+
 # flag -> why the port refuses it
 REFUSED = {
     "--pallas_grad": "a TPU kernel switch; on the card the training sweep always runs K1 and K3",
@@ -48,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MVSNet trainer, PyTorch/CUDA port")
     p.add_argument("--mode", default="train", choices=["train", "test", "profile"],
                    help="profile: trace eval steps with torch.profiler into <logdir>/profile/trace.json")
-    p.add_argument("--model", default="mvsnet", help="select model (accepted, as train.py; MVSNet is the one model)")
+    p.add_argument("--model", default="mvsnet", help="select model (models.find_model_def; MVSNet is the one model)")
     p.add_argument("--refine", action="store_true", help="use the refine network")
     p.add_argument("--dataset", default="dtu_yao", choices=["dtu_yao", "blender"])
     p.add_argument("--trainpath", default="", help="train datapath")
@@ -132,12 +134,13 @@ def main(argv: list[str] | None = None) -> None:
     np.random.seed(seed)
     torch.manual_seed(seed)
     print("argv:", sys.argv[1:] if argv is None else argv)
-    print("args:", vars(args))
+    print_args(args)
 
     from .data import find_dataset_def
-    from .models import MVSNet
+    from .models import find_model_def
     from .train.loop import Trainer
 
+    model_def = find_model_def(args.model)
     MVSDataset = find_dataset_def(args.dataset)
     common = dict(Nlights=args.Nlights, pairfile=args.pairfile, seed=seed, img_cache=args.img_cache)
     train_dataset = MVSDataset(args.trainpath, args.trainlist, "train", args.NtrainViews,
@@ -145,7 +148,7 @@ def main(argv: list[str] | None = None) -> None:
     test_dataset = MVSDataset(args.testpath, args.testlist, "test", args.NtestViews,
                               args.numdepth, args.interval_scale, **common)
 
-    model = MVSNet(refine=args.refine, depth_chunk=args.depth_chunk,
+    model = model_def(refine=args.refine, depth_chunk=args.depth_chunk,
                    dtype=torch.bfloat16 if args.dtype == "bfloat16" else None, remat=args.remat)
     trainer = Trainer(
         model, train_dataset, test_dataset,

@@ -147,7 +147,8 @@ def test_runner_trains_the_blender_preset_on_the_cpu(monkeypatch, tmp_path):
     recipes.main(["train_BlenderDS", "--trainlist", str(root / "list.txt"), "--testlist", str(root / "list.txt"),
                   "--epochs", "1", "--num_workers", "0", "--seed", "1", "--device", "cpu"])
     log = (tmp_path / "log" / "train.log").read_text()
-    assert "'NtrainViews': 5" in log and "'Nlights': '3:7'" in log and "'lr': 5e-06" in log
+    table = dict(re.findall(r"^(\w+) *\t(.*?) *\t<class", log, re.M))  # train_cli's print_args rows
+    assert table["NtrainViews"] == "5" and table["Nlights"] == "3:7" and table["lr"] == "5e-06"
     assert "Epoch 0/1, Iter 0/1" in log and "(3 samples" in log
     loss = float(re.search(r"Iter 0/1, LR:[^,]*, loss=([^,]+)", log).group(1))
     test = re.search(r"avg_test_scalars: \{'loss': ([^,]+)", log)

@@ -31,10 +31,12 @@ from scene_3dreconstruction_mvsnet_tpu.parallel import make_mesh as j_make_mesh
 from scene_3dreconstruction_mvsnet_tpu.train import TrainState
 from scene_3dreconstruction_mvsnet_tpu.train import make_train_step as j_make_train_step
 from scene_3dreconstruction_mvsnet_tpu_torch.interop import load_jax_variables
-from scene_3dreconstruction_mvsnet_tpu_torch.models import CostRegNet, MVSNet, random_init_
+from scene_3dreconstruction_mvsnet_tpu_torch.interop.from_jax import _put_deconv_bn
+from scene_3dreconstruction_mvsnet_tpu_torch.models import ConvTransposeBnReLU3D, CostRegNet, MVSNet, random_init_
 from scene_3dreconstruction_mvsnet_tpu_torch.parallel import VolumeSharding, exchange_halos, gather_depth
 from scene_3dreconstruction_mvsnet_tpu_torch.train import make_scheduler, make_train_step
 from tests.test_parallel import _tiny_batch
+from tests.test_torch_api import _randomize
 
 torch.set_num_threads(1)
 
@@ -159,6 +161,21 @@ for kw in ({"mesh": mesh}, {"mesh": mesh, "group": mesh.world}):
     except ValueError as e:
         refused.append(str(e))
 out["refused"] = refused
+
+# 5. the transposed conv without its ReLU on this rank's half of D (sweep=2), eval and train
+from scene_3dreconstruction_mvsnet_tpu_torch.models import ConvTransposeBnReLU3D
+mesh = meshes[2]
+vs = volume_sharding(mesh)
+L = task["deconv_x"].shape[2] // 2
+out["deconv"] = {}
+for mode in ("eval", "train"):
+    blk = ConvTransposeBnReLU3D(*task["deconv_channels"], relu=False).double()
+    blk.load_state_dict(task["deconv_state"])
+    blk.train(mode == "train")
+    blk[1].process_group = mesh.sweep_group
+    with torch.no_grad():
+        y = blk(task["deconv_x"][:, :, mesh.sweep_index * L:(mesh.sweep_index + 1) * L], vs)
+    out["deconv"][mode] = {"y": y, "buffers": dict(blk.named_buffers())}
 torch.save(out, sys.argv[2])
 dist.destroy_process_group()
 """
@@ -194,6 +211,32 @@ def jax_model():
     return jmodel, jvars
 
 
+DECONV_CHANNELS = (8, 4)  # in, out
+
+
+def _deconv_x() -> np.ndarray:
+    """The transposed conv's input, NCDHW [2, 8, 8, 4, 4] (D = 8: 4 planes a
+    rank at sweep=2)."""
+    return np.random.RandomState(11).randn(2, DECONV_CHANNELS[0], 8, 4, 4).astype(np.float32)
+
+
+def _deconv_jax():
+    """The JAX ConvTransposeBnReLU3D(relu=False) and its variables, every
+    leaf drawn from a seed (BatchNorm scales and variances near 1)."""
+    block = jmodels.ConvTransposeBnReLU3D(DECONV_CHANNELS[1], relu=False)
+    x = jnp.asarray(np.moveaxis(_deconv_x(), 1, -1))
+    return block, _randomize(block.init(jax.random.PRNGKey(0), x), 12)
+
+
+def _deconv_state(variables) -> dict:
+    """The JAX block's variables as the port's state dict, in f64."""
+    state: dict = {}
+    _put_deconv_bn(state, "b", variables["params"], variables["batch_stats"])
+    state = {k.removeprefix("b."): torch.from_numpy(np.array(v, np.float64)) for k, v in state.items()}
+    state["1.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return state
+
+
 @pytest.fixture(scope="module")
 def job(tmp_path_factory, jax_model):
     """Run the rank job once; (task, the ranks' results in rank order)."""
@@ -210,6 +253,9 @@ def job(tmp_path_factory, jax_model):
         "state64": _mvsnet_state(torch.float64),
         "state64_refine": _mvsnet_state(torch.float64, refine=True),
         "state32": load_jax_variables(MVSNet(), jax_model[1]).state_dict(),
+        "deconv_channels": DECONV_CHANNELS,
+        "deconv_x": torch.from_numpy(_deconv_x()).double(),
+        "deconv_state": _deconv_state(_deconv_jax()[1]),
     }
     spec = tmp / "task.pt"
     torch.save(task, spec)
@@ -488,3 +534,39 @@ def test_mesh_train_step_refuses_mismatches(job):
     for out in ranks:
         assert len(out["refused"]) == 2
         assert "volume_sharding" in out["refused"][0] and "not both" in out["refused"][1]
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_conv_transpose_without_relu_split_matches_jax(job, mode):
+    """ConvTransposeBnReLU3D(relu=False), Hourglass3d's decoder stage, on
+    each sweep rank's half of D (one upper halo plane; in train mode the
+    BatchNorm reduced over the sweep group) against the unsplit block in
+    f64 (1e-10 x the largest value) and against the JAX block with
+    relu=False in f32 (1e-4 x max|y|): the output, negative values kept,
+    and in train mode the running statistics."""
+    task, ranks = job
+    block = ConvTransposeBnReLU3D(*DECONV_CHANNELS, relu=False).double()
+    block.load_state_dict(task["deconv_state"])
+    block.train(mode == "train")
+    with torch.no_grad():
+        want = block(task["deconv_x"])
+    jblock, jvars = _deconv_jax()
+    x_last = jnp.asarray(np.moveaxis(_deconv_x(), 1, -1))
+    if mode == "train":
+        jy, upd = jblock.apply(jvars, x_last, train=True, mutable=["batch_stats"])
+        jstats = jax.device_get(upd["batch_stats"])["bn"]
+    else:
+        jy = jblock.apply(jvars, x_last, train=False)
+    jy = torch.from_numpy(np.moveaxis(np.asarray(jy), -1, 1).copy())
+    assert want.min() < 0
+    L = want.shape[2] // 2
+    for r, out in enumerate(ranks):
+        got = out["deconv"][mode]
+        s = out["coords"][2][1]
+        _close(got["y"], want[:, :, s * L : (s + 1) * L], 1e-10, f"rank {r} output")
+        _close(got["y"], jy[:, :, s * L : (s + 1) * L], 1e-4, f"rank {r} output against JAX")
+        if mode == "train":
+            for n, b in block.named_buffers():
+                _close(got["buffers"][n], b, 1e-10, f"rank {r} {n}")
+            for n, key in (("1.running_mean", "mean"), ("1.running_var", "var")):
+                _close(got["buffers"][n], torch.from_numpy(np.array(jstats[key])), 1e-4, f"rank {r} {n} against JAX")
