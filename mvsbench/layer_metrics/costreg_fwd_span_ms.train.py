@@ -1,0 +1,9 @@
+"""CostRegNet's forward device ms a train step: the port's ``mvsnet.costreg``
+span, first to last device operation launched inside it (the trace joined
+with the spans), the mean over the window's steps."""
+
+from mvsbench.spans import mean_device_ms
+
+
+def read(record):
+    return mean_device_ms(record, "mvsnet.costreg")

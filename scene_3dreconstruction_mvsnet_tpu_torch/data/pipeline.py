@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharding import shard_rows
+from ..utils import tracing
 
 PREFETCH_DEPTH = 2  # batches in flight to the card: the one handed over and the next
 STAGING_SLOTS = 3  # pinned buffer sets; any number works, more let the producer run further ahead
@@ -220,12 +221,20 @@ def prefetch_to_device(loader: Iterable[dict], device: torch.device | str,
     on a side stream as soon as the batch is ready, a batch ahead of the one
     yielded (PREFETCH_DEPTH); the consuming stream waits on the copy's event
     before it is handed the batch. The counterpart of the JAX package's
-    ``prefetch_to_device``. Elsewhere the arrays are wrapped as CPU tensors."""
+    ``prefetch_to_device``. Elsewhere the arrays are wrapped as CPU tensors.
+
+    Each wait of the consumer for its next batch, up to the batch being
+    handed over, is the ``feed.wait`` span (``utils/tracing.py``)."""
     device = torch.device(device)
     if device.type != "cuda":
-        for batch in BackgroundLoader(loader, transform=transform):
-            yield batch, {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
-        return
+        batches = iter(BackgroundLoader(loader, transform=transform))
+        while True:
+            with tracing.span("feed.wait"):
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                on_device = {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+            yield batch, on_device
 
     staging = PinnedStaging()
     side = torch.cuda.Stream(device)
@@ -250,9 +259,15 @@ def prefetch_to_device(loader: Iterable[dict], device: torch.device | str,
         return host, on_device
 
     issued: collections.deque = collections.deque()
-    for item in BackgroundLoader(loader, transform=produce):
-        issued.append(issue(item))
-        if len(issued) >= PREFETCH_DEPTH:
-            yield hand_over(*issued.popleft())
-    while issued:
-        yield hand_over(*issued.popleft())
+    items = iter(BackgroundLoader(loader, transform=produce))
+    while True:
+        with tracing.span("feed.wait"):
+            while len(issued) < PREFETCH_DEPTH:
+                item = next(items, None)
+                if item is None:
+                    break
+                issued.append(issue(item))
+            if not issued:
+                return
+            batch = hand_over(*issued.popleft())
+        yield batch

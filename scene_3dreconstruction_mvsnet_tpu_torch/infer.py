@@ -8,6 +8,7 @@ from typing import Callable
 import torch
 
 from .models.mvsnet import MVSNet
+from .utils import tracing
 
 
 def make_infer_step(model: MVSNet, device: torch.device | str) -> Callable[..., dict[str, torch.Tensor]]:
@@ -16,15 +17,20 @@ def make_infer_step(model: MVSNet, device: torch.device | str) -> Callable[..., 
     'photometric_confidence'}`` on that device.
 
     u8 images are copied as u8 and divided by 255 on the device (exact for
-    loaders that emit u8/255 images, and a quarter of the f32 copy)."""
+    loaders that emit u8/255 images, and a quarter of the f32 copy). Each
+    call is the ``infer`` span, its copies and the divide ``infer.h2d``
+    (``utils/tracing.py``)."""
     device = torch.device(device)
     model = model.to(device).eval()
 
     @torch.inference_mode()
     def infer(imgs: torch.Tensor, proj_matrices: torch.Tensor, depth_values: torch.Tensor):
-        imgs = imgs.to(device, non_blocking=True)
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        return model(imgs, proj_matrices.to(device), depth_values.to(device))
+        with tracing.span("infer"):
+            with tracing.span("infer.h2d"):
+                imgs = imgs.to(device, non_blocking=True)
+                if imgs.dtype == torch.uint8:
+                    imgs = imgs.float() / 255.0
+                proj_matrices, depth_values = proj_matrices.to(device), depth_values.to(device)
+            return model(imgs, proj_matrices, depth_values)
 
     return infer

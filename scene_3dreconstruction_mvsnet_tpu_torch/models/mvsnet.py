@@ -40,6 +40,7 @@ from ..ops.paired_sweep import paired_cost_volume
 from ..ops.regression import regress_depth_and_confidence
 from ..parallel.collectives import all_reduce_sum
 from ..parallel.halo import gather_depth
+from ..utils import tracing
 from .blocks import _FlaxRunningVar
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
@@ -118,7 +119,7 @@ class MVSNet(nn.Module):
 
         # Step 3: 3D U-Net -> [B, D, h, w] logits (split: this rank's planes,
         # then every rank's, gathered over the sweep group).
-        cost_reg = remat(self.cost_regularization, volume, split)[..., 0]
+        cost_reg = remat(self._cost_logits, volume, split)[..., 0]
         if split is not None:
             cost_reg = gather_depth(cost_reg, 1, split.group)
 
@@ -133,6 +134,14 @@ class MVSNet(nn.Module):
         if self.refine_network is not None:
             outputs["refined_depth"] = self.refine_network(imgs[:, 0], depth, dtype)
         return outputs
+
+    def _cost_logits(self, volume: torch.Tensor, split) -> torch.Tensor:
+        """CostRegNet on the volume, the ``mvsnet.costreg`` span
+        (``utils/tracing.py``). With ``remat`` the backward recomputes it, so
+        the span opens again there, inside ``train.backward``. The split's
+        gather is outside it."""
+        with tracing.span("mvsnet.costreg"):
+            return self.cost_regularization(volume, split)
 
     def _rematerialised(self, fn, *args):
         """``fn(*args)``, its intermediates recomputed in the backward; the

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .kernels.paired_grad import paired_grad
 from .kernels.sweep_variance import sweep_variance
 from .kernels.warp_grad import warp_grad
@@ -57,20 +58,23 @@ class PairedCostVolume(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_vol):
-        warps, features, proj, depth = ctx.saved_tensors
-        B, V = features.shape[:2]
-        dfeat = torch.empty(features.shape, dtype=features.dtype, device=features.device)
-        # the card takes the batch in one launch of each kernel; the plain
-        # versions take one sample at a time, which bounds their f32 temporaries
-        parts = [slice(None)] if features.is_cuda else [slice(b, b + 1) for b in range(B)]
-        for s in parts:
-            t, _ = paired_grad(g_vol[s], warps[s], features[s], dref_out=dfeat[s, 0])
-            # every (sample, source view) pair's transpose, into dfeat's source views
-            warp_grad(
-                t.flatten(0, 1), proj[s, 1:].flatten(0, 1), proj[s, :1].expand(-1, V - 1, -1, -1).flatten(0, 1),
-                depth[s, None].expand(-1, V - 1, -1).flatten(0, 1), out=dfeat[s, 1:],
-            )
-        return dfeat, None, None, None, None
+        """The ``sweep.backward`` span (``utils/tracing.py``); on a card it
+        runs on the autograd engine's thread, below ``train.backward``."""
+        with tracing.span("sweep.backward"):
+            warps, features, proj, depth = ctx.saved_tensors
+            B, V = features.shape[:2]
+            dfeat = torch.empty(features.shape, dtype=features.dtype, device=features.device)
+            # the card takes the batch in one launch of each kernel; the plain
+            # versions take one sample at a time, which bounds their f32 temporaries
+            parts = [slice(None)] if features.is_cuda else [slice(b, b + 1) for b in range(B)]
+            for s in parts:
+                t, _ = paired_grad(g_vol[s], warps[s], features[s], dref_out=dfeat[s, 0])
+                # every (sample, source view) pair's transpose, into dfeat's source views
+                warp_grad(
+                    t.flatten(0, 1), proj[s, 1:].flatten(0, 1), proj[s, :1].expand(-1, V - 1, -1, -1).flatten(0, 1),
+                    depth[s, None].expand(-1, V - 1, -1).flatten(0, 1), out=dfeat[s, 1:],
+                )
+            return dfeat, None, None, None, None
 
 
 def paired_cost_volume(

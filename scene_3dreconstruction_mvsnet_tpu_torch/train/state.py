@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from ..models.mvsnet import mvsnet_loss
 from ..parallel.collectives import all_reduce_grads, all_reduce_sum
+from ..utils import tracing
 from .metrics import depth_metrics
 
 BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
@@ -72,23 +73,32 @@ def make_train_step(
     the global masked mean, the gradients are summed over the ranks before
     the update, and 'loss' and the metrics are those of the global batch.
     ``reduce_grads``, if given, takes the place of that sum (the data x
-    sweep step's, ``parallel/sharding.py``)."""
+    sweep step's, ``parallel/sharding.py``).
+
+    Each call is the ``train.step`` span, with ``train.forward`` (the model
+    and the loss), ``train.backward`` (the backward and that sum) and
+    ``train.optimizer`` (the update and the scheduler) inside it
+    (``utils/tracing.py``)."""
     device = torch.device(device)
     if reduce_grads is None and group is not None:
         reduce_grads = lambda: all_reduce_grads(model.parameters(), group)  # noqa: E731
 
     def train_step(batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-        model.train()
-        b = batch_to_device(batch, device)
-        outputs = model(b["imgs"], b["proj_matrices"], b["depth_values"])
-        loss = mvsnet_loss(outputs.get("refined_depth", outputs["depth"]), b["depth"], b["mask"], group)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if reduce_grads is not None:
-            reduce_grads()
-        optimizer.step()
-        scheduler.step()
-        return _aux(loss, outputs, b, group)
+        with tracing.span("train.step"):
+            model.train()
+            b = batch_to_device(batch, device)
+            with tracing.span("train.forward"):
+                outputs = model(b["imgs"], b["proj_matrices"], b["depth_values"])
+                loss = mvsnet_loss(outputs.get("refined_depth", outputs["depth"]), b["depth"], b["mask"], group)
+            optimizer.zero_grad(set_to_none=True)
+            with tracing.span("train.backward"):
+                loss.backward()
+                if reduce_grads is not None:
+                    reduce_grads()
+            with tracing.span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            return _aux(loss, outputs, b, group)
 
     return train_step
 
