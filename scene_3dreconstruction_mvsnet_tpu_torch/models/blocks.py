@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ..parallel.collectives import all_reduce_sum, world_size
 from ..parallel.halo import exchange_halos
+from ..utils import tracing
 
 
 class _FlaxRunningVar:
@@ -105,18 +106,114 @@ def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if p is None else p.to(dtype)
 
 
+def _parity_weight(w: torch.Tensor) -> torch.Tensor:
+    """The stride-2 3x3x3 transposed conv's weight ``w`` [Cin, Cout, 3, 3, 3]
+    -> the output-parity classes' correlation kernels as one conv's weight,
+    [8 Cout, Cin, 2, 2, 2]: output channel (pd, ph, pw, o), then the taps.
+    Per axis, y[2m] = w[1] x[m] and y[2m+1] = w[2] x[m] + w[0] x[m+1]: class
+    0 takes tap 0 -> w[1] (tap 1 is zero), class 1 tap 0 -> w[2] and tap 1
+    -> w[0]."""
+    for d in (2, 3, 4):
+        k0, k1, k2 = w.narrow(d, 0, 1), w.narrow(d, 1, 1), w.narrow(d, 2, 1)
+        w = torch.cat([k1, torch.zeros_like(k1), k2, k0], d)
+    cin, cout = w.shape[:2]
+    return w.reshape(cin, cout, 2, 2, 2, 2, 2, 2).permute(2, 4, 6, 1, 0, 3, 5, 7).reshape(8 * cout, cin, 2, 2, 2)
+
+
+def conv_transpose3d_k3s2(x: torch.Tensor, w: torch.Tensor, output_padding=(1, 1, 1),
+                          halo_d: bool = False) -> torch.Tensor:
+    """``F.conv_transpose3d(x, w, None, 2, 1, output_padding)`` by output
+    parity, ``w`` [Cin, Cout, 3, 3, 3] in the dtype of ``x``. The 8 classes
+    (pd, ph, pw) are one stride-1 conv on a 2x2x2 window over ``x`` padded by
+    one zero plane at the upper end of each axis, 8 Cout channels out
+    (``_parity_weight``; a class's missing taps are zero), so each output
+    value is rounded once; one depth-to-space copy interleaves them. (Eight
+    convs, each a class with only its own taps, took 2.4-3.8x as long on an
+    H100 at CostRegNet's shapes.) ``output_padding`` 0 on an axis drops its last
+    (odd) plane. With ``halo_d``, the last plane of D is the upper
+    neighbour's (``parallel/halo.py``) and stands in for the zero plane:
+    D_slice + 1 planes give the slice's 2 D_slice. The ``deconv.parity``
+    span (``utils/tracing.py``)."""
+    with tracing.span("deconv.parity"):
+        xp = F.pad(x, (0, 1, 0, 1, 0, 0 if halo_d else 1))
+        b, cout, n = x.shape[0], w.shape[1], [s - 1 for s in xp.shape[2:]]
+        y = F.conv3d(xp, _parity_weight(w)).reshape(b, 2, 2, 2, cout, *n).permute(0, 4, 5, 1, 6, 2, 7, 3)
+        y = y.reshape(b, cout, *(2 * s for s in n))
+        keep = [2 * s - 1 + p for s, p in zip(n, (1 if halo_d else output_padding[0], *output_padding[1:]))]
+        return y if keep == list(y.shape[2:]) else y[..., :keep[0], :keep[1], :keep[2]]
+
+
+class _ConvTransposeK3S2(torch.autograd.Function):
+    """The decoder's ConvTranspose3d(k3, s2, p1, output_padding 1): the
+    forward by output parity (``conv_transpose3d_k3s2``), the backward as
+    autograd runs it for ``F.conv_transpose3d`` (the input's gradient a
+    strided cuDNN conv, the weight's cuDNN's wgrad). With ``halo_d`` the op
+    is the transposed conv of the D_slice + 1 planes with no output padding
+    on D, its last plane dropped."""
+
+    @staticmethod
+    def forward(ctx, x, w, halo_d):
+        ctx.save_for_backward(x, w)
+        ctx.halo_d = halo_d
+        return conv_transpose3d_k3s2(x, w, halo_d=halo_d)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if ctx.halo_d:
+            g = F.pad(g, (0, 0, 0, 0, 0, 1))
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            g, x, w, None, (2, 2, 2), (1, 1, 1), (1, 1, 1), True, (0 if ctx.halo_d else 1, 1, 1), 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+class _ConvK3S2(torch.autograd.Function):
+    """Conv3d(k3, s2, p1): the forward cuDNN's, the input's gradient by
+    output parity (it is ``conv_transpose3d(g, w, stride 2, padding 1)``,
+    with output padding 1 on an even axis of the input and 0 on an odd one),
+    the weight's cuDNN's wgrad, as autograd runs it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv3d(x, w, None, 2, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = conv_transpose3d_k3s2(g, w, tuple(1 - s % 2 for s in x.shape[2:]))
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(
+                g, x, w, None, (2, 2, 2), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1, [False, True, False])[1]
+        return gx, gw
+
+
+def _is_k3s2(module: nn.Module) -> bool:
+    """A bias-free Conv3d(k3, s2, p1): its input gradient is the stride-2
+    transposed conv that ``conv_transpose3d_k3s2`` computes."""
+    return (isinstance(module, nn.Conv3d) and module.bias is None and module.kernel_size == (3, 3, 3)
+            and module.stride == (2, 2, 2) and module.padding == (1, 1, 1))
+
+
 def conv(module: nn.Conv2d | nn.Conv3d, x: torch.Tensor, sweep=None) -> torch.Tensor:
     """Apply ``module`` in the dtype of ``x``; with ``sweep``, ``module`` a
     3x3x3 conv with padding 1, to this rank's slice of D. The stride-1 conv
     y[d] reads x[d-1..d+1], so the slice takes one plane from each
     neighbour; the stride-2 conv y[d] reads x[2d-1..2d+1], so it takes one
     lower plane only (the slice starts on an even plane). D then takes no
-    padding."""
+    padding, and the stride-2 conv keeps autograd's backward. Unsplit, a
+    Conv3d(k3, s2, p1) takes its input's gradient by output parity
+    (``_ConvK3S2``)."""
     fn = F.conv2d if isinstance(module, nn.Conv2d) else F.conv3d
     padding = module.padding
     if sweep is not None:
         x = exchange_halos(x, 2, 1, 1 if module.stride[0] == 1 else 0, sweep.group)
         padding = (0, *module.padding[1:])
+    elif _is_k3s2(module):
+        return _ConvK3S2.apply(x, _cast(module.weight, x.dtype))
     return fn(x, _cast(module.weight, x.dtype), _cast(module.bias, x.dtype), module.stride, padding)
 
 
@@ -165,23 +262,14 @@ class ConvTransposeBnReLU3D(nn.Sequential):
         self.relu = relu
 
     def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
-        """With ``sweep``: y[2i] reads x[i] and y[2i+1] reads x[i] and
-        x[i+1], so the slice takes one upper plane; the transposed conv then
-        adds no output padding on D, and its 2 D_slice + 1 planes are cut
-        to the slice's 2 D_slice."""
+        """The transposed conv by output parity (``_ConvTransposeK3S2``).
+        With ``sweep``: y[2i] reads x[i] and y[2i+1] reads x[i] and x[i+1],
+        so the slice takes one upper plane, which stands in for the zero
+        plane on D: the slice's 2 D_slice planes."""
         deconv, bn = self[0], self[1]
-        if sweep is None:
-            x = F.conv_transpose3d(
-                x, _cast(deconv.weight, x.dtype), None, deconv.stride, deconv.padding,
-                deconv.output_padding,
-            )
-        else:
-            planes = 2 * x.shape[2]
+        if sweep is not None:
             x = exchange_halos(x, 2, 0, 1, sweep.group)
-            x = F.conv_transpose3d(
-                x, _cast(deconv.weight, x.dtype), None, deconv.stride, deconv.padding,
-                (0, *deconv.output_padding[1:]),
-            )[:, :, :planes]
+        x = _ConvTransposeK3S2.apply(x, _cast(deconv.weight, x.dtype), sweep is not None)
         x = bn(x)
         return F.relu(x) if self.relu else x
 

@@ -5,7 +5,9 @@ Counterpart of the non-flat branch of
 8 -> (s2) 16 -> 16 -> (s2) 32 -> 32 -> (s2) 64 -> 64, three
 ConvTranspose3d+BN+ReLU decoder stages with additive skips, and a biased
 3x3x3 conv to one channel. Input [B, D, H, W, 32] -> [B, D, H, W, 1],
-channels-last like the JAX module; NCDHW inside.
+channels-last like the JAX module; NCDHW inside. The decoder's transposed
+convs, and the stride-2 convs' input gradients, are computed by output
+parity (``models/blocks.py::conv_transpose3d_k3s2``).
 
 ``fused_conv0`` is the counterpart of the JAX module's ``pallas_conv0``
 (``FusedFlatConv0``): a bf16 eval forward runs conv0 + BatchNorm + ReLU

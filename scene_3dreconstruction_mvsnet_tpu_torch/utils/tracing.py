@@ -37,6 +37,10 @@ The spans, each opened where its work is done:
   train.backward     ``loss.backward()`` and the gradients' reduction
   train.optimizer    ``optimizer.step()`` and ``scheduler.step()``
   sweep.backward     ``ops/paired_sweep.py::PairedCostVolume.backward``
+  deconv.parity      ``models/blocks.py::conv_transpose3d_k3s2``, the stride-2
+                     transposed conv by output parity: the decoder's three in
+                     CostRegNet's forward, and the stride-2 convs' three input
+                     gradients in the backward (on the autograd thread)
   feed.wait          ``data/pipeline.py::prefetch_to_device``: the consumer
                      waiting for and handed the next batch
 """

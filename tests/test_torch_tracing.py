@@ -112,7 +112,9 @@ def test_a_request_is_one_tree_with_one_item_id(tracer):
     infer(*_request())
     spans = tracer.take()["spans"]
     names = _by_name(spans)
-    assert [s["name"] for s in spans] == ["infer", "infer.h2d", "mvsnet.costreg"] * 2
+    assert [s["name"] for s in spans] == ["infer", "infer.h2d", "mvsnet.costreg", *["deconv.parity"] * 3] * 2
+    for k in names["deconv.parity"]:  # the decoder's three transposed convs
+        assert spans[spans[k]["parent"]]["name"] == "mvsnet.costreg"
     for root in names["infer"]:
         assert spans[root]["parent"] is None and spans[root]["item"] == root
         kids = [s for s in spans if s["parent"] == root]
@@ -127,10 +129,11 @@ def test_a_request_is_one_tree_with_one_item_id(tracer):
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_a_fed_train_step_is_one_tree_with_one_item_id(tracer, remat):
-    """The feed's wait, then the step: forward (CostRegNet in it), backward
-    (the paired sweep's backward in it: on the CPU the autograd engine runs
-    it on the calling thread; with remat CostRegNet's recompute too) and the
-    optimizer."""
+    """The feed's wait, then the step: forward (CostRegNet in it, the
+    decoder's three transposed convs in that), backward (the stride-2 convs'
+    three input gradients and the paired sweep's backward in it: on the CPU
+    the autograd engine runs them on the calling thread; with remat
+    CostRegNet's recompute too, its decoder in it) and the optimizer."""
     step = _step(_model(remat))
     batches = prefetch_to_device(Loader(Samples(), batch_size=2), "cpu")
     _, batch = next(batches)
@@ -139,13 +142,30 @@ def test_a_fed_train_step_is_one_tree_with_one_item_id(tracer, remat):
     out = tracer.take()
     spans = out["spans"]
     pairs = [(s["name"], None if s["parent"] is None else spans[s["parent"]]["name"]) for s in spans]
+    decoder = [("deconv.parity", "mvsnet.costreg")] * 3
     assert pairs == [("feed.wait", None), ("train.step", None), ("train.forward", "train.step"),
-                     ("mvsnet.costreg", "train.forward"), ("train.backward", "train.step"),
-                     *([("mvsnet.costreg", "train.backward")] if remat else []),
+                     ("mvsnet.costreg", "train.forward"), *decoder, ("train.backward", "train.step"),
+                     *([("mvsnet.costreg", "train.backward"), *decoder] if remat else []),
+                     *[("deconv.parity", "train.backward")] * 3,
                      ("sweep.backward", "train.backward"), ("train.optimizer", "train.step")]
     assert spans[0]["item"] == 0 and {s["item"] for s in spans[1:]} == {1}
     assert {(s["tid"], s["ident"]) for s in spans} == {(threading.get_native_id(), threading.get_ident())}
     assert set(out["launches"]) == set(KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_deconv_parity_spans_a_step(tracer, remat):
+    """``deconv.parity`` opens 6 times a train step (the decoder's three
+    transposed convs, the stride-2 convs' three input gradients) and 9 times
+    with remat (the recompute's decoder again); a request opens it 3 times."""
+    step = _step(_model(remat))
+    batches = prefetch_to_device(Loader(Samples(), batch_size=2), "cpu")
+    step(next(batches)[1])
+    batches.close()
+    spans = tracer.take()["spans"]
+    assert len(_by_name(spans)["deconv.parity"]) == (9 if remat else 6)
+    make_infer_step(_model(remat), "cpu")(*_request())
+    assert len(_by_name(tracer.take()["spans"])["deconv.parity"]) == 3
 
 
 def test_the_sweep_backward_on_another_thread_hangs_below_the_open_span(tracer):
