@@ -127,7 +127,18 @@ exit code is not 0):
              at the headline ([1, 8, 192, 216, 288]; ms, peak memory), and
              in f32 on a [1, 8, 32, 64, 64] crop against the CPU within
              1e-4 x max|y|; no hand-written kernel may launch. It runs
-             after phase 9.
+             after phase 9;
+ 14. cascade CasMVSNet's per-pixel stages at its DTU test setting (5 views
+             of the ring at 864x1152, 48/32/8 planes, interval ratios 4/2/1):
+             K1's per-pixel build at stage 2's [5,432,576,16] with planes
+             [32,432,576] and stage 3's [5,864,1152,8] with [8,864,1152] (bf16
+             features, bf16 and f32 out), K2's on [1,32,432,576] and
+             [1,8,864,1152] bf16 logits with per-pixel planes, each held
+             against its plain version at the per-plane rows' tolerances and
+             timed beside it with its bound; then a bf16 CasMVSNet through
+             ``make_infer_step``, one forward under the sync debug mode
+             "error" with the launch counts reset just before it (K1 and K2
+             once per plane and twice per pixel).
 The kernels' JSON line, then {"ok": true, "device": {...}} close the output.
 
 There is no CPU fallback: without a CUDA device the script exits at once.
@@ -220,6 +231,11 @@ SWEEP_REQUESTS, SWEEP_LOSS_RTOL = 3, 1e-4
 REMAT_GRAD_TOL = 2e-5
 API_HOURGLASS_TOL = 1e-4  # x max|y|: f32 Hourglass3d on the card against the CPU (test_cost_reg_net_matches_jax's)
 RANK_TIMEOUT_S = 600  # a spawned gloo rank's time limit
+# the cascade phase: CasMVSNet at its DTU test setting (the phase's
+# features are random, its planes the cascade's own from a smooth depth map)
+CAS_NDEPTHS, CAS_RATIOS = (48, 32, 8), (4, 2, 1)
+CAS_CHANNELS = (32, 16, 8)  # the FPN's stage widths
+CAS_FORWARDS = 5  # timed bf16 forwards after the checked one
 # the bench phase: the trims of train_e2e (4 views: 28 samples an epoch, 2
 # epochs) and e2e_eval (the bin and serve configurations; --views is
 # dtu_full's, not run); the keys of each JAX counterpart's result
@@ -2432,11 +2448,12 @@ def bench_kernel_cases():
     yield "e2e_eval bin, batch 2", samples, np.stack([dv, dv]), hw[0] // 4, hw[1] // 4
 
 
-def k1_k2_errors(gen, proj, dv, h: int, w: int, dtype, out_dtypes) -> tuple[float, float, dict]:
+def k1_k2_errors(gen, proj, dv, h: int, w: int, dtype, out_dtypes, channels: int = 32) -> tuple[float, float, dict]:
     """K1 and K2 against their plain versions on random inputs of one shape
     (these launches are not a main path's): projections ``proj`` [B, V, 4,
-    4] and depth values ``dv`` [B, D] on the card. K1 once per sample on
-    features [V, h, w, 32] in ``dtype`` into each of ``out_dtypes``: its
+    4] and depth values ``dv`` [B, D], or per pixel [B, D, h, w], on the
+    card. K1 once per sample on features [V, h, w, ``channels``] in
+    ``dtype`` into each of ``out_dtypes``: its
     largest |error| against the plain f32 volume, and its largest error over
     its limit, the limit
     SWEEP_ATOL_F32 (f32 features) or SWEEP_ATOL_BF16 (bf16) x max|ref|,
@@ -2456,7 +2473,7 @@ def k1_k2_errors(gen, proj, dv, h: int, w: int, dtype, out_dtypes) -> tuple[floa
     k1_err = k1_over = 0.0
     with torch.inference_mode():
         for b in range(B):
-            feats = torch.rand((V, h, w, 32), generator=gen, device=dev).to(dtype)
+            feats = torch.rand((V, h, w, channels), generator=gen, device=dev).to(dtype)
             ref = cost_volume_variance(feats[None], proj[b:b + 1], dv[b:b + 1], out_dtype=torch.float32)[0]
             atol = (SWEEP_ATOL_BF16 if dtype == torch.bfloat16 else SWEEP_ATOL_F32) * ref.abs().max().item()
             for out_dtype in out_dtypes:
@@ -2984,14 +3001,162 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
     return rows
 
 
+def cascade_stage_inputs(gen, stage: int):
+    """CasMVSNet's stage ``stage`` (2 or 3) on ring camera REF_CAMERAS[0]:
+    its projections [1, V, 4, 4] at its resolution and its per-pixel planes
+    [1, D, h, w] f32, built by the model's own ``pixel_planes`` from a
+    smooth depth map at the previous stage's resolution that spans the
+    middle of the sweep (the previous stage's depth stands in for it), the
+    interval (DEPTH_MAX - DEPTH_MIN) / D as CasMVSNet divides by D0; on
+    ``gen``'s device."""
+    import torch
+    import torch.nn.functional as F
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.models.cas_mvsnet import pixel_planes, stage_projection
+
+    dev = gen.device
+    projs, _ = headline_rig(REF_CAMERAS[0])
+    s = stage - 1
+    h, w = H // 4 * 2 ** s, W // 4 * 2 ** s
+    coarse = torch.rand((1, 1, 9, 12), generator=gen, device=dev)
+    prev = F.interpolate(coarse, size=(h // 2, w // 2), mode="bilinear", align_corners=False)[:, 0]
+    prev = DEPTH_MIN + (DEPTH_MAX - DEPTH_MIN) * (0.25 + 0.5 * prev)
+    interval = torch.full((1,), (DEPTH_MAX - DEPTH_MIN) / D, device=dev)
+    planes = pixel_planes(prev, interval, CAS_NDEPTHS[s], CAS_RATIOS[s], (H, W), (h, w)).contiguous()
+    return stage_projection(torch.from_numpy(projs).to(dev)[None], 2 ** s), planes
+
+
+def phase_cascade(gen) -> list[dict]:
+    """K1's and K2's per-pixel builds at CasMVSNet's stages 2 and 3
+    (``cascade_stage_inputs``) against their plain versions
+    (``k1_k2_errors``: K1 on bf16 features into bf16 and f32, K2 on bf16
+    logits, the per-plane rows' tolerances), each timed beside its plain
+    version with its bound; then a bf16 CasMVSNet (random weights from
+    ``gen``) on a request of the ring: one forward on the request's device
+    tensors under the sync debug mode "error" (the entry's own copies of
+    the host arrays are left out: a blocking copy is a host wait by
+    design), the launch counts reset just before it, and CAS_FORWARDS
+    requests through ``make_infer_step`` timed. Returns the two kernels'
+    rows per stage, their launches filled in from the checked forward."""
+    import torch
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import find_model_def, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import kernels
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.softmax_regression import softmax_regression_cuda
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels.sweep_variance import sweep_variance_cuda
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.plane_sweep import cost_volume_variance
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.regression import regress_depth_and_confidence
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rows, failed = [], []
+    for stage in (2, 3):
+        proj, planes = cascade_stage_inputs(gen, stage)
+        Dn, h, w = planes.shape[1:]
+        C = CAS_CHANNELS[stage - 1]
+        k1_over, k1_err, k2 = k1_k2_errors(gen, proj, planes, h, w, bf16, (bf16, torch.float32), channels=C)
+        with torch.inference_mode():
+            feats = torch.rand((1, V, h, w, C), generator=gen, device=dev).to(bf16)
+            k1 = timed_pair(lambda: sweep_variance_cuda(feats[0], proj[0], planes[0]),
+                            lambda: cost_volume_variance(feats, proj, planes),
+                            iters=20, plain_iters=3, kernel="sweep_variance_kernel")
+            # features and the per-pixel planes read once, the volume written once
+            k1_bound = bound(feats.numel() * 2 + planes.numel() * 4 + Dn * h * w * C * 2,
+                             sweep_flops(proj[0], planes[0], h, w, C), "f32")
+            del feats
+            logits = (torch.randn((1, Dn, h, w), generator=gen, device=dev) * 3.0).to(bf16)
+            k2_t = timed_pair(lambda: softmax_regression_cuda(logits, planes),
+                              lambda: regress_depth_and_confidence(logits.float(), planes),
+                              iters=50, plain_iters=10, kernel="softmax_regression_kernel")
+            k2_bound = bound(logits.numel() * 2 + planes.numel() * 4 + 2 * h * w * 4, 5 * logits.numel(), "f32")
+            del logits
+        log("cascade", f"stage {stage}: K1 per pixel [{V},{h},{w},{C}] bf16 + planes [{Dn},{h},{w}] f32 -> "
+                       f"[{Dn},{h},{w},{C}] bf16 and f32: max|err| {k1_err:.3e} ({k1_over:.3f} x its limit); kernel "
+                       f"{k1[0]:.4f} ms (device {fmt_ms(k1[3])}), plain {k1[1]:.4f} ms, bound "
+                       f"{k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']}). K2 per pixel on [1,{Dn},{h},{w}] "
+                       f"bf16 logits: depth max|err| {k2['depth']:.3e} vs {k2['depth_tol']:.3e}, conf max|err| "
+                       f"{k2['conf']:.3e} vs {REG_CONF_ATOL:.0e} ({k2['excluded']} pixels excluded near an integer "
+                       f"index); kernel {k2_t[0]:.4f} ms (device {fmt_ms(k2_t[3])}), plain {k2_t[1]:.4f} ms, bound "
+                       f"{k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
+        if not (k1_over <= 1.0 and k2["depth"] <= k2["depth_tol"] and k2["conf"] <= REG_CONF_ATOL):
+            failed.append(stage)
+        common = {"route": "cuda", "case": f"CasMVSNet stage {stage}", "library_ms": None}
+        rows += [
+            {"name": "sweep_variance_per_pixel", **common,
+             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/sweep_variance.cu",
+             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/sweep_variance.py:607",
+             "shape": f"[{V},{h},{w},{C}] bf16 + [{Dn},{h},{w}] f32 -> [{Dn},{h},{w},{C}] bf16",
+             "max_abs_err": k1_err, "max_abs_err_over_tol": k1_over, "ms": k1[0], "device_ms": k1[3],
+             "plain_ms": k1[1], **k1_bound, "library_none": NO_LIBRARY["sweep_variance"]},
+            {"name": "softmax_regression_per_pixel", **common,
+             "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/softmax_regression.cu",
+             "replaces": "scene_3dreconstruction_mvsnet_tpu/ops/pallas/softmax_regression.py:86",
+             "shape": f"[1,{Dn},{h},{w}] bf16 logits + [1,{Dn},{h},{w}] f32 -> 2x[1,{h},{w}] f32",
+             "max_abs_err": k2["depth"], "tol": k2["depth_tol"], "conf_max_abs_err": k2["conf"],
+             "conf_tol": REG_CONF_ATOL, "ms": k2_t[0], "device_ms": k2_t[3], "plain_ms": k2_t[1], **k2_bound,
+             "library_none": NO_LIBRARY["softmax_regression"]},
+        ]
+    if failed:
+        raise AssertionError(f"K1 or K2 per pixel disagrees with its plain version at CasMVSNet's stages {failed}")
+
+    model = random_init_(find_model_def("casmvsnet")(dtype=bf16, ndepths=CAS_NDEPTHS,
+                                                     depth_interval_ratio=CAS_RATIOS).to(dev), gen)
+    infer = make_infer_step(model, dev)
+    projs, dv = headline_rig(REF_CAMERAS[0])
+    imgs = torch.randint(0, 256, (1, V, H, W, 3), generator=torch.Generator().manual_seed(SEED), dtype=torch.uint8)
+    request = (imgs, torch.from_numpy(projs)[None], torch.from_numpy(dv)[None])
+    infer(*request)  # warm: cuDNN's plans, the kernels' first launches
+    dev_request = (imgs.to(dev).float() / 255.0, request[1].to(dev), request[2].to(dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out = model(*dev_request)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    depth, conf = out["depth"], out["photometric_confidence"]
+    # stages 2 and 3 may reach (N_s / 2) ratio_s intervals past the sweep's ends
+    slack = sum(n / 2 * r for n, r in zip(CAS_NDEPTHS[1:], CAS_RATIOS[1:])) * (DEPTH_MAX - DEPTH_MIN) / D
+    if not (tuple(depth.shape) == (1, H, W) and bool(torch.isfinite(depth).all()) and bool(torch.isfinite(conf).all())
+            and DEPTH_MIN - slack <= depth.min().item() and depth.max().item() <= DEPTH_MAX + slack
+            and 0.0 <= conf.min().item() and conf.max().item() <= 1.0 + 1e-5):
+        raise AssertionError(f"CasMVSNet's bf16 forward gave bad maps: {tuple(depth.shape)}, depth "
+                             f"[{depth.min().item()}, {depth.max().item()}], conf [{conf.min().item()}, "
+                             f"{conf.max().item()}]")
+    want = {"sweep_variance": 1, "sweep_variance_per_pixel": 2, "softmax_regression": 1,
+            "softmax_regression_per_pixel": 2}
+    if counts != want:
+        raise AssertionError(f"one CasMVSNet forward launched {counts}, not {want}")
+    forward_ms = [cuda_time_ms(lambda: infer(*request), 1) for _ in range(CAS_FORWARDS)]
+    log("cascade", f"bf16 CasMVSNet through make_infer_step at {V}x{H}x{W}, {'/'.join(map(str, CAS_NDEPTHS))} "
+                   f"planes: one forward under set_sync_debug_mode('error') raised nothing; its launches {counts}; "
+                   f"depth [{depth.min().item():.1f}, {depth.max().item():.1f}] mm; "
+                   f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; a request "
+                   f"(H2D, forward) {', '.join(f'{t:.2f}' for t in forward_ms)} ms "
+                   f"(median {statistics.median(forward_ms):.2f})")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+        row["launches_per"] = f"{counts[row['name']]} per request"
+    return rows
+
+
 def near_integer_index(depth_plain, depth_diff, depth_values=None):
     """Pixels where the truncated expected plane index may legitimately differ
     between two paths: the plain path's expected index (linear in depth, as
     the hypotheses are evenly spaced) lies within the two paths' measured
     disagreement plus INT_BAND of an integer. ``depth_values`` [B, D] are
-    each sample's hypotheses (default: the headline's)."""
+    each sample's hypotheses, [B, D, h, w] each pixel's (evenly spaced per
+    pixel, as the cascade's); default: the headline's."""
     if depth_values is None:
         lo, per_depth = DEPTH_MIN, (D - 1) / (DEPTH_MAX - DEPTH_MIN)
+    elif depth_values.dim() == 4:
+        lo = depth_values[:, 0]
+        per_depth = (depth_values.shape[1] - 1) / (depth_values[:, -1] - lo)
     else:
         lo = depth_values[:, :1, None]
         per_depth = (depth_values.shape[1] - 1) / (depth_values[:, -1:, None] - lo)
@@ -3136,6 +3301,7 @@ def main() -> None:
         row["launches_per"] = f"{n / units:g} per {unit}"
         row.update(extra.get(row["name"], {}))
     rows += phase_recipes(repo, gen)  # the five presets through the runner, and the kernels at their shapes
+    rows += phase_cascade(gen)  # K1 and K2 per pixel at CasMVSNet's stages 2 and 3, and its forward's launches
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "scene_3dreconstruction_mvsnet_tpu"))
     if leaked:

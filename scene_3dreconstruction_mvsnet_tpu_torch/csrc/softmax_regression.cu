@@ -30,6 +30,11 @@
 // same values in f32. D is not padded. The plain path's order and exp stay:
 // the max first, then expf(x - max). The tile and slice counts were chosen by
 // measuring on the card (PERF.md, section 6).
+//
+// Per-pixel planes (kPerPixel; CasMVSNet's stages 2 and 3): depth_values
+// [B, D, HW] in place of [B, D], so the expectation reads pixel p's own depth
+// of each plane (a warp's 32 pixels read 32 neighbouring floats of a plane).
+// Only that load differs; the per-plane instantiation is the code it was.
 
 #include <cstdint>
 
@@ -52,10 +57,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 
 // cost [B, D, HW] with strides (stride_b, stride_d, 1) in elements,
-// depth_values [B, D] -> depth, conf [B, HW]. Block (x, y): pixels
-// [x * kPixels, (x + 1) * kPixels) of sample y; dynamic shared memory: the
-// [D, kPixels] tile of T. kVec: the rows of every block start 16-byte aligned.
-template <typename T, bool kVec>
+// depth_values [B, D] (kPerPixel: [B, D, HW]) -> depth, conf [B, HW]. Block
+// (x, y): pixels [x * kPixels, (x + 1) * kPixels) of sample y; dynamic shared
+// memory: the [D, kPixels] tile of T. kVec: the rows of every block start
+// 16-byte aligned.
+template <typename T, bool kVec, bool kPerPixel>
 __global__ void __launch_bounds__(kThreads)
 softmax_regression_kernel(const T* __restrict__ cost, int64_t stride_b, int64_t stride_d,
                           const float* __restrict__ depth_values, float* __restrict__ depth,
@@ -103,12 +109,22 @@ softmax_regression_kernel(const T* __restrict__ cost, int64_t stride_b, int64_t 
 #pragma unroll
   for (int k = 0; k < kSlices; ++k) m = fmaxf(m, part[0][k][p]);
 
-  const float* dv = depth_values + static_cast<int64_t>(b) * D;
+  // the plane's depth is dv[d * dv_stride]; a per-pixel thread past the
+  // sample's last pixel reads that pixel's (its results are not stored)
+  const float* dv;
+  int64_t dv_stride;
+  if constexpr (kPerPixel) {
+    dv = depth_values + static_cast<int64_t>(b) * D * HW + p0 + min(p, np - 1);
+    dv_stride = HW;
+  } else {
+    dv = depth_values + static_cast<int64_t>(b) * D;
+    dv_stride = 1;
+  }
   float se = 0.0f, sd = 0.0f, si = 0.0f;
   for (int d = d0; d < d1; ++d) {
     const float e = expf(to_f32(col[d * kPixels]) - m);
     se += e;
-    sd = fmaf(e, __ldg(dv + d), sd);
+    sd = fmaf(e, __ldg(dv + d * dv_stride), sd);
     si = fmaf(e, static_cast<float>(d), si);
   }
   part[1][s][p] = se;
@@ -133,27 +149,35 @@ softmax_regression_kernel(const T* __restrict__ cost, int64_t stride_b, int64_t 
   conf[out] = mass / sum;
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kPerPixel>
 int launch(const void* cost, int64_t stride_b, int64_t stride_d, const void* depth_values, void* depth, void* conf,
            int B, int D, int HW, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(D) * kPixels * sizeof(T);
   if (smem + sizeof(float) * 4 * kSlices * kPixels > 48 * 1024) {  // above the default, on the current device
-    const cudaError_t err = cudaFuncSetAttribute(softmax_regression_kernel<T, kVec>,
+    const cudaError_t err = cudaFuncSetAttribute(softmax_regression_kernel<T, kVec, kPerPixel>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>((HW + kPixels - 1) / kPixels), static_cast<unsigned>(B));
-  softmax_regression_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
+  softmax_regression_kernel<T, kVec, kPerPixel><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(cost), stride_b, stride_d, static_cast<const float*>(depth_values),
       static_cast<float*>(depth), static_cast<float*>(conf), D, HW);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kPerPixel>
 int launch_vec(const void* cost, int64_t stride_b, int64_t stride_d, const void* depth_values, void* depth,
                void* conf, int B, int D, int HW, int vec, cudaStream_t stream) {
-  return vec ? launch<T, true>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, stream)
-             : launch<T, false>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, stream);
+  return vec ? launch<T, true, kPerPixel>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, stream)
+             : launch<T, false, kPerPixel>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, stream);
+}
+
+template <typename T>
+int launch_planes(const void* cost, int64_t stride_b, int64_t stride_d, const void* depth_values, void* depth,
+                  void* conf, int B, int D, int HW, int vec, int per_pixel, cudaStream_t stream) {
+  return per_pixel
+             ? launch_vec<T, true>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, vec, stream)
+             : launch_vec<T, false>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, vec, stream);
 }
 
 }  // namespace
@@ -163,14 +187,17 @@ int launch_vec(const void* cost, int64_t stride_b, int64_t stride_d, const void*
 // (stride 1 over H*W), that D * kPixels (32) * sizeof(element) bytes fit in a
 // block's shared memory (MAX_PLANES in ops/kernels/softmax_regression.py), and sets
 // vec only where the logits' address and both strides are multiples of 16
-// bytes. bf16 selects bf16 (1) or f32 (0) logits. Returns the cudaError_t of
-// the launch (0 on success).
+// bytes. bf16 selects bf16 (1) or f32 (0) logits; per_pixel, depth_values
+// [B, D, HW] (contiguous) in place of [B, D]. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int softmax_regression_launch(const void* cost, int bf16, int64_t stride_b, int64_t stride_d,
                                          const void* depth_values, void* depth, void* conf, int B, int D, int HW,
-                                         int vec, void* stream) {
+                                         int vec, int per_pixel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_vec<__nv_bfloat16>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, vec, s)
-              : launch_vec<float>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, vec, s);
+  return bf16 ? launch_planes<__nv_bfloat16>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, vec,
+                                             per_pixel, s)
+              : launch_planes<float>(cost, stride_b, stride_d, depth_values, depth, conf, B, D, HW, vec, per_pixel,
+                                     s);
 }
 
 extern "C" const char* softmax_regression_error_string(int code) {

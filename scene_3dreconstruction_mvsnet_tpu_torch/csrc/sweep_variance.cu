@@ -47,6 +47,13 @@
 // path's order, so the output equals the plain path's bit for bit. A GPU
 // thread can load from any address, so none of the TPU kernel's window
 // planning, column-pair packing or row-skip is needed.
+//
+// Per-pixel planes (kPerPixel; CasMVSNet's stages 2 and 3): depth [D, H, W]
+// in place of depth [D], each (plane, pixel) its own depth, read once by the
+// thread that walks the pixel's planes (the 4 lanes of a pixel read the same
+// value). Only the load of the plane's depth differs; the per-plane
+// instantiation is the code it was. No emit: the per-pixel sweep has no
+// training path.
 
 #include "sweep_coords.cuh"
 
@@ -62,11 +69,11 @@ constexpr int kShareViews = 4;  // source views whose coordinates a pixel's 4 la
 // hold channel groups 0-3, and lane g keeps source view g's ray and computes
 // its coordinate on each plane for all four. Otherwise each lane computes
 // every view's ray and coordinate on every plane.
-template <typename TIn, typename TOut, bool kEmit, bool kShare>
+template <typename TIn, typename TOut, bool kEmit, bool kShare, bool kPerPixel>
 struct Sweep {
   const TIn* features;  // [V, H, W, C]
   const float* hm_s;    // [V-1, 12] in shared memory
-  const float* depth;   // [D]
+  const float* depth;   // [D], or [D, H, W] when kPerPixel
   TOut* out;            // [D, H, W, C]
   TOut* warps;          // [V-1, D, H, W, C] when kEmit
   int nsrc, D, H, W, C, c0;
@@ -78,7 +85,12 @@ struct Sweep {
   __device__ __forceinline__ void plane(int d) {
     const int64_t plane = static_cast<int64_t>(H) * W;
     const int64_t view_stride = plane * C;
-    const float dep = __ldg(depth + d);
+    float dep;
+    if constexpr (kPerPixel) {
+      dep = __ldg(depth + d * plane + pix);
+    } else {
+      dep = __ldg(depth + d);
+    }
     float s[kGroup], q[kGroup];
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
@@ -125,11 +137,12 @@ struct Sweep {
 };
 
 // features [V, H, W, C] (view 0 = reference), homography [V-1, 12] (R
-// row-major, then t) of src_proj @ inv(ref_proj), depth [D] -> out
+// row-major, then t) of src_proj @ inv(ref_proj), depth [D] (or [D, H, W]
+// when kPerPixel) -> out
 // [D, H, W, C] and, when kEmit, warps [V-1, D, H, W, C]. Block (x, y): 256
 // (pixel, group) threads, planes [y * d_chunk, (y + 1) * d_chunk); dynamic
 // shared memory: the (V-1) x 12 homography terms.
-template <typename TIn, typename TOut, bool kEmit, bool kShare>
+template <typename TIn, typename TOut, bool kEmit, bool kShare, bool kPerPixel>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict__ homography,
                       const float* __restrict__ depth, TOut* __restrict__ out, TOut* __restrict__ warps, int V,
@@ -143,7 +156,7 @@ sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict_
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= static_cast<int64_t>(H) * W * groups) return;
 
-  Sweep<TIn, TOut, kEmit, kShare> k;
+  Sweep<TIn, TOut, kEmit, kShare, kPerPixel> k;
   k.features = features;
   k.hm_s = hm_s;
   k.depth = depth;
@@ -172,7 +185,7 @@ sweep_variance_kernel(const TIn* __restrict__ features, const float* __restrict_
 
 template <typename TIn, typename TOut, bool kShare>
 int launch(const void* features, const void* homography, const void* depth, void* out, void* warps, int V,
-           int D, int H, int W, int C, int d_chunk, cudaStream_t stream) {
+           int D, int H, int W, int C, int d_chunk, int per_pixel, cudaStream_t stream) {
   const int64_t threads = static_cast<int64_t>(H) * W * (C / kGroup);
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
                   static_cast<unsigned>((D + d_chunk - 1) / d_chunk));
@@ -182,12 +195,16 @@ int launch(const void* features, const void* homography, const void* depth, void
   const float* dv = static_cast<const float*>(depth);
   TOut* o = static_cast<TOut*>(out);
   TOut* w = static_cast<TOut*>(warps);
-  if (w != nullptr) {
-    sweep_variance_kernel<TIn, TOut, true, kShare><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D, H, W, C,
-                                                                                      d_chunk);
+  if (per_pixel) {
+    if (w != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    sweep_variance_kernel<TIn, TOut, false, kShare, true><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D, H,
+                                                                                             W, C, d_chunk);
+  } else if (w != nullptr) {
+    sweep_variance_kernel<TIn, TOut, true, kShare, false><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D, H,
+                                                                                             W, C, d_chunk);
   } else {
-    sweep_variance_kernel<TIn, TOut, false, kShare><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D, H, W,
-                                                                                       C, d_chunk);
+    sweep_variance_kernel<TIn, TOut, false, kShare, false><<<grid, kThreads, smem, stream>>>(f, hm, dv, o, w, V, D,
+                                                                                              H, W, C, d_chunk);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -196,11 +213,13 @@ int launch(const void* features, const void* homography, const void* depth, void
 // otherwise the general build.
 template <typename TIn, typename TOut>
 int launch_views(const void* features, const void* homography, const void* depth, void* out, void* warps,
-                 int V, int D, int H, int W, int C, int d_chunk, int share, cudaStream_t stream) {
+                 int V, int D, int H, int W, int C, int d_chunk, int share, int per_pixel, cudaStream_t stream) {
   if (share) {
-    return launch<TIn, TOut, true>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, stream);
+    return launch<TIn, TOut, true>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, per_pixel,
+                                   stream);
   }
-  return launch<TIn, TOut, false>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, stream);
+  return launch<TIn, TOut, false>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, per_pixel,
+                                  stream);
 }
 
 }  // namespace
@@ -210,22 +229,25 @@ int launch_views(const void* features, const void* homography, const void* depth
 // sets share only for C = 32 and V <= 5 (launch_geometry in
 // ops/kernels/sweep_variance.py). in_bf16 / out_bf16 select bf16 (1) or f32
 // (0). warps is null, or a [V-1, D, H, W, C] output in the output dtype that
-// receives each source view's samples. d_chunk: planes per block. Returns the
-// cudaError_t of the launch (0 on success).
+// receives each source view's samples. d_chunk: planes per block. per_pixel:
+// depth is [D, H, W] (one depth per plane and pixel) instead of [D]; it takes
+// no warps (cudaErrorInvalidValue). Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int sweep_variance_launch(const void* features, int in_bf16, const void* homography,
                                      const void* depth, void* out, int out_bf16, void* warps, int V,
-                                     int D, int H, int W, int C, int d_chunk, int share, void* stream) {
+                                     int D, int H, int W, int C, int d_chunk, int share, int per_pixel,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
     return out_bf16 ? launch_views<__nv_bfloat16, __nv_bfloat16>(features, homography, depth, out, warps, V, D, H,
-                                                                 W, C, d_chunk, share, s)
+                                                                 W, C, d_chunk, share, per_pixel, s)
                     : launch_views<__nv_bfloat16, float>(features, homography, depth, out, warps, V, D, H, W, C,
-                                                         d_chunk, share, s);
+                                                         d_chunk, share, per_pixel, s);
   }
   return out_bf16 ? launch_views<float, __nv_bfloat16>(features, homography, depth, out, warps, V, D, H, W, C,
-                                                       d_chunk, share, s)
+                                                       d_chunk, share, per_pixel, s)
                   : launch_views<float, float>(features, homography, depth, out, warps, V, D, H, W, C, d_chunk, share,
-                                               s);
+                                               per_pixel, s);
 }
 
 extern "C" const char* sweep_variance_error_string(int code) {

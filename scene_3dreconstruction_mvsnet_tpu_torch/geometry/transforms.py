@@ -129,20 +129,24 @@ def plane_sweep_coords(
 
     Args:
       src_proj, ref_proj: [B, 4, 4] K@E.
-      depth_values: [B, D].
+      depth_values: [B, D], or one depth per plane and pixel [B, D, H, W]
+        (CasMVSNet's later stages); the same depths give the same bits
+        either way.
       height, width: reference feature map size.
 
     Returns (x, y): two [B, D, H*W] float32 source pixel coordinate tensors.
     """
     rot, trans = relative_projection(src_proj, ref_proj)
     x, y, _ = pixel_grid(height, width, device=depth_values.device, dtype=depth_values.dtype)
+    B, D = depth_values.shape[:2]
+    depth = depth_values[:, :, None] if depth_values.dim() == 2 else depth_values.reshape(B, D, height * width)
 
     def comp(i):
         # R[i] . (x, y, 1) as elementwise ops in a fixed order (a GEMM would
         # pick its own), the order the sweep kernel evaluates
         r = rot[:, i, :, None]  # [B, 3, 1]
         rxy = (r[:, 0] * x + r[:, 1] * y) + r[:, 2]  # [B, HW]
-        return rxy[:, None, :] * depth_values[:, :, None] + trans[:, i, None, None]
+        return rxy[:, None, :] * depth + trans[:, i, None, None]
 
     z = comp(2)
     return comp(0) / z, comp(1) / z

@@ -6,15 +6,19 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.nn as nn
 
-from .models.mvsnet import MVSNet
 from .utils import tracing
 
 
-def make_infer_step(model: MVSNet, device: torch.device | str) -> Callable[..., dict[str, torch.Tensor]]:
+def make_infer_step(model: nn.Module, device: torch.device | str) -> Callable[..., dict]:
     """Move ``model`` to ``device`` in eval mode and return
-    ``infer(imgs, proj_matrices, depth_values) -> {'depth',
-    'photometric_confidence'}`` on that device.
+    ``infer(imgs, proj_matrices, depth_values)``: the model's outputs on
+    that device. ``model`` is any model called as MVSNet is, ``model(imgs
+    [B, V, H, W, 3], proj_matrices [B, V, 4, 4], depth_values [B, D])``,
+    that returns at least ``depth`` and ``photometric_confidence``: the
+    port's ``MVSNet`` or ``CasMVSNet`` (whose dict also holds each stage's
+    maps).
 
     u8 images are copied as u8 and divided by 255 on the device (exact for
     loaders that emit u8/255 images, and a quarter of the f32 copy). Each

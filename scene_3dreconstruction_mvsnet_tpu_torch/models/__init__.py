@@ -1,14 +1,17 @@
 """The port's models and their blocks. ``find_model_def(name)`` is the
-``--model`` registry of the training CLI (the reference's ``--model
-mvsnet``)."""
+model registry: ``mvsnet`` (the training CLI's ``--model``, the reference's
+``--model mvsnet``) and ``casmvsnet`` (inference only), each called as
+``model(imgs, proj_matrices, depth_values)``."""
 
 from .blocks import BasicBlock, ConvBnReLU, ConvBnReLU3D, ConvTransposeBnReLU3D, Hourglass3d
+from .cas_mvsnet import CasMVSNet
 from .cost_reg_net import CostRegNet
 from .feature_net import FeatureNet
+from .fpn_feature_net import FPNFeatureNet
 from .mvsnet import MVSNet, mvsnet_loss, random_init_
 from .refine_net import RefineNet
 
-_MODELS = {"mvsnet": MVSNet}
+_MODELS = {"mvsnet": MVSNet, "casmvsnet": CasMVSNet}
 
 
 def find_model_def(name: str):
@@ -21,10 +24,12 @@ def find_model_def(name: str):
 
 __all__ = [
     "BasicBlock",
+    "CasMVSNet",
     "ConvBnReLU",
     "ConvBnReLU3D",
     "ConvTransposeBnReLU3D",
     "CostRegNet",
+    "FPNFeatureNet",
     "FeatureNet",
     "Hourglass3d",
     "MVSNet",

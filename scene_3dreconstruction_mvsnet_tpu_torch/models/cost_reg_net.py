@@ -21,6 +21,11 @@ neighbours' planes (``models/blocks.py``); the output is the unsplit
 network's planes of the slice. K4 then runs on the slice extended by one
 neighbouring plane on each side and its two edge planes are dropped: K4 pads
 D with zeros itself, so only its interior planes are the unsplit conv's.
+
+``in_channels`` (32: MVSNet's) and ``prob_bias`` (True: MVSNet's) make the
+cascade's regularisers (``models/cas_mvsnet.py``: 32, 16 and 8 input
+channels, ``prob`` without bias), each with the same layers and keys; K4
+takes 32 channels only.
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from .blocks import ConvBnReLU3D, ConvTransposeBnReLU3D, conv
 
 
 class CostRegNet(nn.Module):
-    def __init__(self, fused_conv0: bool = False):
+    def __init__(self, fused_conv0: bool = False, in_channels: int = 32, prob_bias: bool = True):
         super().__init__()
+        if fused_conv0 and in_channels != 32:
+            raise ValueError(f"the fused conv0 (K4) takes 32 input channels, not {in_channels}")
         self.fused_conv0 = fused_conv0
-        self.conv0 = ConvBnReLU3D(32, 8)
+        self.conv0 = ConvBnReLU3D(in_channels, 8)
         self.conv1 = ConvBnReLU3D(8, 16, stride=2)
         self.conv2 = ConvBnReLU3D(16, 16)
         self.conv3 = ConvBnReLU3D(16, 32, stride=2)
@@ -47,10 +54,10 @@ class CostRegNet(nn.Module):
         self.conv7 = ConvTransposeBnReLU3D(64, 32)
         self.conv9 = ConvTransposeBnReLU3D(32, 16)
         self.conv11 = ConvTransposeBnReLU3D(16, 8)
-        self.prob = nn.Conv3d(8, 1, 3, stride=1, padding=1, bias=True)
+        self.prob = nn.Conv3d(8, 1, 3, stride=1, padding=1, bias=prob_bias)
 
     def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
-        """x [B, D, H, W, 32] in the compute dtype -> [B, D, H, W, 1]; with
+        """x [B, D, H, W, in_channels] in the compute dtype -> [B, D, H, W, 1]; with
         ``sweep``, D is this rank's slice."""
         if self.fused_conv0 and not self.training and x.dtype == torch.bfloat16:
             scale, bias = fold_bn(self.conv0.bn)

@@ -17,6 +17,10 @@ so the card's SMs fill at the headline's 62,208 pixels. The TPU kernel's
 unrolled D loop and exp scratch answered a TPU register limit and are not
 copied.
 
+The depth values come one per plane, ``[B, D]``, or one per plane and pixel,
+``[B, D, H, W]`` (CasMVSNet's stages 2 and 3): the second takes the kernel's
+per-pixel build, which differs only in the load of a plane's depth.
+
 A CPU tensor takes the plain version (``ops/regression.py``) on the logits
 cast to f32; a CUDA tensor launches the kernel or raises.
 """
@@ -32,6 +36,7 @@ from ..regression import regress_depth_and_confidence
 from . import check_cuda_tensor, load_cuda_library
 
 LAUNCHES = 0  # kernel launches since the last reset; only the launch site adds to it
+PER_PIXEL_LAUNCHES = 0  # of those, the launches with per-pixel depth values
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_PLANES = 1024  # a block's f32 tile of D x 32 pixels stays within 128 KB of shared memory
@@ -42,7 +47,7 @@ def _library() -> ctypes.CDLL:
     lib = load_cuda_library("softmax_regression")
     lib.softmax_regression_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.softmax_regression_launch.restype = ctypes.c_int
     lib.softmax_regression_error_string.argtypes = [ctypes.c_int]
@@ -54,9 +59,10 @@ def softmax_regression_cuda(
     cost_reg: torch.Tensor, depth_values: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2: cost_reg [B, D, H, W] logits in bf16 or f32, the pixels of
-    each plane contiguous (any strides over B and D), depth_values [B, D] f32
-    -> (depth [B, H, W], confidence [B, H, W]) f32."""
-    global LAUNCHES
+    each plane contiguous (any strides over B and D), depth_values [B, D] or
+    per pixel [B, D, H, W] f32 -> (depth [B, H, W], confidence [B, H, W])
+    f32."""
+    global LAUNCHES, PER_PIXEL_LAUNCHES
     device = cost_reg.device
     if device.type != "cuda":
         raise ValueError(f"softmax_regression_cuda takes CUDA tensors, got {device}")
@@ -69,9 +75,11 @@ def softmax_regression_cuda(
         raise ValueError(f"the pixels of each plane of cost_reg must be contiguous, got strides {cost_reg.stride()}")
     if not 1 <= D <= MAX_PLANES:
         raise ValueError(f"K2 takes 1 to {MAX_PLANES} planes, got {D}")
-    check_cuda_tensor(depth_values, "depth_values", (torch.float32,), 2, device, align=4)
-    if tuple(depth_values.shape) != (B, D):
-        raise ValueError(f"depth_values must be [{B}, {D}], got {tuple(depth_values.shape)}")
+    per_pixel = depth_values.dim() == 4
+    check_cuda_tensor(depth_values, "depth_values", (torch.float32,), 4 if per_pixel else 2, device, align=4)
+    want = (B, D, H, W) if per_pixel else (B, D)
+    if tuple(depth_values.shape) != want:
+        raise ValueError(f"depth_values must be {list(want)}, got {tuple(depth_values.shape)}")
     esize = cost_reg.element_size()
     stride_b, stride_d = cost_reg.stride(0), cost_reg.stride(1)
     vec = all(n % 16 == 0 for n in (cost_reg.data_ptr(), stride_b * esize, stride_d * esize))
@@ -81,11 +89,12 @@ def softmax_regression_cuda(
     with torch.cuda.device(device):
         err = lib.softmax_regression_launch(
             cost_reg.data_ptr(), int(cost_reg.dtype == torch.bfloat16), stride_b, stride_d, depth_values.data_ptr(),
-            depth.data_ptr(), conf.data_ptr(), B, D, H * W, int(vec), stream,
+            depth.data_ptr(), conf.data_ptr(), B, D, H * W, int(vec), int(per_pixel), stream,
         )
     if err != 0:
         raise RuntimeError(f"softmax_regression kernel launch failed: {lib.softmax_regression_error_string(err).decode()}")
     LAUNCHES += 1
+    PER_PIXEL_LAUNCHES += per_pixel
     return depth, conf
 
 
@@ -94,7 +103,8 @@ def softmax_regression(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depth and photometric confidence from the regularised cost
     [B, D, H, W] (logits in the compute dtype, regressed in f32) and depth
-    values [B, D]: the plain path for CPU tensors, K2 for CUDA tensors."""
+    values [B, D] or per pixel [B, D, H, W]: the plain path for CPU tensors,
+    K2 for CUDA tensors."""
     if cost_reg.device.type == "cpu":
         return regress_depth_and_confidence(cost_reg.float(), depth_values)
     return softmax_regression_cuda(cost_reg, depth_values)

@@ -14,6 +14,11 @@ validity flag with XLA fallback, column-pair packing and row-skip existed becaus
 reaches within 128 lanes; a GPU thread loads from any address, so none of
 them is ported.
 
+Depth planes come one per plane, ``depth_values [B, D]``, or one per plane
+and pixel, ``[B, D, H, W]`` (CasMVSNet's stages 2 and 3): the second takes
+the kernel's per-pixel build, which differs only in the load of a plane's
+depth, and has no emit.
+
 A CPU tensor takes the plain version (``ops/plane_sweep.py``); a CUDA tensor
 launches the kernel or raises.
 """
@@ -32,6 +37,7 @@ from . import check_cuda_tensor, load_cuda_library
 
 LAUNCHES = 0  # kernel launches since the last reset; only the launch site adds to it
 EMIT_LAUNCHES = 0  # of those, the launches that also emitted the warped volumes
+PER_PIXEL_LAUNCHES = 0  # of those, the launches with per-pixel depth planes
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -46,7 +52,7 @@ def _library() -> ctypes.CDLL:
     lib.sweep_variance_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sweep_variance_launch.restype = ctypes.c_int
     lib.sweep_variance_error_string.argtypes = [ctypes.c_int]
@@ -99,11 +105,12 @@ def sweep_variance_cuda(
     emit_warps: bool = False,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 for one sample: features [V, H, W, C] (f32 or bf16, C % 8
-    == 0), proj_matrices [V, 4, 4] f32, depth_values [D] f32 ->
-    variance [D, H, W, C] in ``out_dtype`` (default: the features dtype);
-    with ``emit_warps`` also each source view's warped volume
-    [V-1, D, H, W, C] in ``out_dtype``, from the same launch."""
-    global LAUNCHES, EMIT_LAUNCHES
+    == 0), proj_matrices [V, 4, 4] f32, depth_values [D] or per pixel
+    [D, H, W] f32 -> variance [D, H, W, C] in ``out_dtype`` (default: the
+    features dtype); with ``emit_warps`` (per-plane depths only) also each
+    source view's warped volume [V-1, D, H, W, C] in ``out_dtype``, from the
+    same launch."""
+    global LAUNCHES, EMIT_LAUNCHES, PER_PIXEL_LAUNCHES
     device = features.device
     if device.type != "cuda":
         raise ValueError(f"sweep_variance_cuda takes CUDA tensors, got {device}")
@@ -116,8 +123,13 @@ def sweep_variance_cuda(
         raise ValueError(f"channels must be a multiple of 8, got {C}")
     if tuple(proj_matrices.shape) != (V, 4, 4) or proj_matrices.dtype != torch.float32:
         raise ValueError(f"proj_matrices must be f32 [{V}, 4, 4], got {proj_matrices.dtype} {tuple(proj_matrices.shape)}")
-    check_cuda_tensor(depth_values, "depth_values", (torch.float32,), 1, device, align=4)
+    per_pixel = depth_values.dim() == 3
+    check_cuda_tensor(depth_values, "depth_values", (torch.float32,), 3 if per_pixel else 1, device, align=4)
     D = depth_values.shape[0]
+    if per_pixel and tuple(depth_values.shape[1:]) != (H, W):
+        raise ValueError(f"per-pixel depth_values must be [D, {H}, {W}], got {tuple(depth_values.shape)}")
+    if per_pixel and emit_warps:
+        raise ValueError("K1 emits warps only with one depth per plane")
     geom = launch_geometry(V, D, H, W, C, torch.cuda.get_device_properties(device).multi_processor_count)
     homography = homography_terms(proj_matrices.to(device))
     out = torch.empty((D, H, W, C), dtype=out_dtype, device=device)
@@ -129,11 +141,12 @@ def sweep_variance_cuda(
             features.data_ptr(), int(features.dtype == torch.bfloat16), homography.data_ptr(),
             depth_values.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
             None if warps is None else warps.data_ptr(), V, D, H, W, C, geom["d_chunk"], int(geom["share_coords"]),
-            stream,
+            int(per_pixel), stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep_variance kernel launch failed: {lib.sweep_variance_error_string(err).decode()}")
     LAUNCHES += 1
+    PER_PIXEL_LAUNCHES += per_pixel
     if warps is None:
         return out
     EMIT_LAUNCHES += 1
@@ -149,10 +162,10 @@ def sweep_variance(
     emit_warps: bool = False,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Variance cost volume: features [B, V, H, W, C], proj_matrices
-    [B, V, 4, 4] f32, depth_values [B, D] f32 -> [B, D, H, W, C] in
-    ``out_dtype`` (default: the features dtype); accumulation is f32. With
-    ``emit_warps`` also the source views' warped volumes
-    [B, V-1, D, H, W, C] in ``out_dtype``.
+    [B, V, 4, 4] f32, depth_values [B, D] or per pixel [B, D, H, W] f32 ->
+    [B, D, H, W, C] in ``out_dtype`` (default: the features dtype);
+    accumulation is f32. With ``emit_warps`` also the source views' warped
+    volumes [B, V-1, D, H, W, C] in ``out_dtype``.
 
     CPU tensors take the plain path (``depth_chunk`` bounds its memory); CUDA
     tensors launch K1 once per sample, which never holds a warped volume it

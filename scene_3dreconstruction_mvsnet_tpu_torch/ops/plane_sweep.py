@@ -25,9 +25,9 @@ def _sweep_variance_chunk(
     emit_warps: bool,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """features [B, V, H, W, C] (view 0 = reference), proj [B, V, 4, 4],
-    depth_chunk [B, Dc] -> (variance [B, Dc, H, W, C] in ``out_dtype``, the
-    source views' warped volumes [B, V-1, Dc, H, W, C] in ``out_dtype`` when
-    ``emit_warps``, else None)."""
+    depth_chunk [B, Dc] (or [B, Dc, H, W]) -> (variance [B, Dc, H, W, C] in
+    ``out_dtype``, the source views' warped volumes [B, V-1, Dc, H, W, C] in
+    ``out_dtype`` when ``emit_warps``, else None)."""
     B, V, H, W, C = features.shape
     Dc = depth_chunk.shape[1]
     ref_proj = proj_matrices[:, 0]
@@ -64,7 +64,8 @@ def cost_volume_variance(
     Args:
       features: [B, V, H, W, C] per-view feature maps; view 0 is the reference.
       proj_matrices: [B, V, 4, 4] K@E per view (f32).
-      depth_values: [B, D] depth hypotheses (f32).
+      depth_values: [B, D] depth hypotheses (f32), or one per plane and
+        pixel [B, D, H, W].
       depth_chunk: if set (must divide D), sweep the depth planes in chunks of
         this size to bound peak memory; None sweeps all planes at once.
       out_dtype: dtype of the result; None means the features dtype.

@@ -18,8 +18,11 @@ import torch.nn.functional as F
 
 
 def depth_regression(prob_volume: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
-    """prob_volume [B, D, H, W], depth_values [B, D] -> depth [B, H, W]."""
-    return torch.einsum("bdhw,bd->bhw", prob_volume, depth_values)
+    """prob_volume [B, D, H, W], depth_values [B, D] or one depth per plane
+    and pixel [B, D, H, W] -> depth [B, H, W]. Both forms take the same
+    product and sum over D, so the same depths give the same bits."""
+    planes = depth_values[:, :, None, None] if depth_values.dim() == 2 else depth_values
+    return (prob_volume * planes).sum(1)
 
 
 def _window4_sum_depth(prob_volume: torch.Tensor) -> torch.Tensor:
@@ -47,7 +50,8 @@ def regress_depth_and_confidence(
     """Softmax over depth, expectation depth and photometric confidence.
 
     cost_reg [B, D, H, W] regularised cost (pre-softmax logits), f32;
-    depth_values [B, D] -> (depth [B, H, W], confidence [B, H, W]).
+    depth_values [B, D] or [B, D, H, W] -> (depth [B, H, W], confidence
+    [B, H, W]).
     Confidence is a diagnostic and carries no gradient.
     """
     prob_volume = torch.softmax(cost_reg, dim=1)

@@ -50,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MVSNet trainer, PyTorch/CUDA port")
     p.add_argument("--mode", default="train", choices=["train", "test", "profile"],
                    help="profile: trace eval steps with torch.profiler into <logdir>/profile/trace.json")
-    p.add_argument("--model", default="mvsnet", help="select model (models.find_model_def; MVSNet is the one model)")
+    p.add_argument("--model", default="mvsnet", help="select model (models.find_model_def; MVSNet is the one that trains)")
     p.add_argument("--refine", action="store_true", help="use the refine network")
     p.add_argument("--dataset", default="dtu_yao", choices=["dtu_yao", "blender"])
     p.add_argument("--trainpath", default="", help="train datapath")
@@ -141,6 +141,9 @@ def main(argv: list[str] | None = None) -> None:
     from .train.loop import Trainer
 
     model_def = find_model_def(args.model)
+    if args.model != "mvsnet":
+        raise NotImplementedError(f"--model {args.model} has no training path yet (ROADMAP.md, Queue 1: "
+                                  "cascade training)")
     MVSDataset = find_dataset_def(args.dataset)
     common = dict(Nlights=args.Nlights, pairfile=args.pairfile, seed=seed, img_cache=args.img_cache)
     train_dataset = MVSDataset(args.trainpath, args.trainlist, "train", args.NtrainViews,

@@ -43,6 +43,12 @@ The spans, each opened where its work is done:
                      gradients in the backward (on the autograd thread)
   feed.wait          ``data/pipeline.py::prefetch_to_device``: the consumer
                      waiting for and handed the next batch
+  casmvsnet.fpn      ``models/cas_mvsnet.py::CasMVSNet``'s feature pyramid
+  casmvsnet.stage{s} its stage s (1, 2, 3) whole: the stage's projections and
+                     depth planes, and the three spans below
+  casmvsnet.sweep{s} the stage's K1 call (per-pixel planes from stage 2 on)
+  casmvsnet.costreg{s}  the stage's CostRegNet
+  casmvsnet.regress{s}  the stage's K2 call
 """
 
 from __future__ import annotations

@@ -552,17 +552,22 @@ def test_dict_average_meter_matches_jax():
 
 
 def test_find_model_def():
-    """The registry: 'mvsnet' is MVSNet; another name raises JAX's KeyError
-    text, also through train_cli's --model."""
+    """The registry: 'mvsnet' is MVSNet, and the port also has 'casmvsnet'
+    (CasMVSNet, inference only, which the JAX package lacks); another name
+    raises JAX's KeyError text with the port's list of names, also through
+    train_cli's --model, which trains MVSNet only."""
     assert tmodels.find_model_def("mvsnet") is tmodels.MVSNet
+    assert tmodels.find_model_def("casmvsnet") is tmodels.CasMVSNet
     with pytest.raises(KeyError) as want:
-        jmodels.find_model_def("casmvsnet")
+        jmodels.find_model_def("nomodel")
     with pytest.raises(KeyError) as got:
-        tmodels.find_model_def("casmvsnet")
-    assert str(got.value) == str(want.value)
+        tmodels.find_model_def("nomodel")
+    assert str(got.value) == str(want.value).replace("['mvsnet']", "['casmvsnet', 'mvsnet']")
     with pytest.raises(KeyError) as cli:
+        train_cli.main(["--model", "nomodel", "--device", "cpu"])
+    assert str(cli.value) == str(got.value)
+    with pytest.raises(NotImplementedError, match="training path"):
         train_cli.main(["--model", "casmvsnet", "--device", "cpu"])
-    assert str(cli.value) == str(want.value)
 
 
 def _load_root(name: str):

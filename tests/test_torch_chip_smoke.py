@@ -114,6 +114,42 @@ def test_bound_helpers_count_the_work(smoke):
     assert smoke.bound(3.35e9, 67e12, "f32")["bound_by"] == "operations"
 
 
+@pytest.mark.parametrize("stage", [2, 3])
+def test_cascade_stage_inputs_are_the_cascades_planes(smoke, stage):
+    """The cascade phase's inputs at CasMVSNet's stage 2 and 3 shapes: the
+    ring's projections with the intrinsic rows scaled to the stage, and per
+    pixel the stage's planes, evenly spaced by (N / (N - 1)) ratio interval
+    about a depth inside the sweep; ``near_integer_index`` reads each
+    pixel's own planes, and ``sweep_flops`` counts per-pixel planes as the
+    same per-plane ones."""
+    import torch
+
+    projs, _ = smoke.headline_rig(smoke.REF_CAMERAS[0])
+    proj, planes = smoke.cascade_stage_inputs(torch.Generator().manual_seed(stage), stage)
+    n, ratio = smoke.CAS_NDEPTHS[stage - 1], smoke.CAS_RATIOS[stage - 1]
+    scale = 2 ** (stage - 1)
+    h, w = smoke.H // 4 * scale, smoke.W // 4 * scale
+    assert tuple(planes.shape) == (1, n, h, w) and planes.dtype == torch.float32 and planes.is_contiguous()
+    want = torch.from_numpy(projs)[None].clone()
+    want[..., :2, :] *= scale
+    torch.testing.assert_close(proj, want, rtol=0, atol=0)
+    interval = (smoke.DEPTH_MAX - smoke.DEPTH_MIN) / smoke.D
+    step = planes[:, 1:] - planes[:, :-1]
+    torch.testing.assert_close(step, torch.full_like(step, ratio * interval * n / (n - 1)), rtol=1e-4, atol=1e-3)
+    mid = planes.mean(1)
+    assert smoke.DEPTH_MIN < mid.min().item() and mid.max().item() < smoke.DEPTH_MAX
+    on_plane = planes[:, 3] + 0 * mid
+    between = 0.5 * (planes[:, 3] + planes[:, 4])
+    assert smoke.near_integer_index(on_plane, torch.zeros_like(mid), planes).all()
+    assert not smoke.near_integer_index(between, torch.zeros_like(mid), planes).any()
+
+    p_small = torch.from_numpy(projs)
+    p_small[:, :2] /= 24.0
+    depth = torch.linspace(500.0, 800.0, 4)
+    per_pixel = depth[:, None, None].expand(4, 9, 12).contiguous()
+    assert smoke.sweep_flops(p_small[:3], per_pixel, 9, 12, 8) == smoke.sweep_flops(p_small[:3], depth, 9, 12, 8)
+
+
 def test_ring_scene_writes_make_legacy_dtu_eval_tree(smoke, tmp_path):
     """RingScene.write_legacy_tree writes the files make_legacy_dtu_eval_tree
     writes for a RingRig at 1200x1600: the pair and cam files byte for byte,
