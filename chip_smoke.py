@@ -7,7 +7,8 @@ Phases (each prints lines tagged with its name; any failure raises and the
 exit code is not 0):
   1. device  the card's name, and name + power limit from nvidia-smi;
   2. build   the sweep-variance, softmax-regression, paired backward-terms,
-             warp-backward, fused-conv0 and single-view warp CUDA kernels
+             warp-backward, fused-conv0, single-view warp and BatchNorm
+             CUDA kernels
              (nvcc, sm_90a, one compiler process each, started together),
              from the checkout's sources;
   3. kernels each kernel against its plain PyTorch version, with times from
@@ -126,8 +127,8 @@ exit code is not 0):
              Hourglass3d(8) in bf16 eval mode on CostRegNet's conv0 output
              at the headline ([1, 8, 192, 216, 288]; ms, peak memory), and
              in f32 on a [1, 8, 32, 64, 64] crop against the CPU within
-             1e-4 x max|y|; no hand-written kernel may launch. It runs
-             after phase 9;
+             1e-4 x max|y|; no hand-written kernel but BatchNorm's may
+             launch. It runs after phase 9;
  14. cascade CasMVSNet's per-pixel stages at its DTU test setting (5 views
              of the ring at 864x1152, 48/32/8 planes, interval ratios 4/2/1):
              K1's per-pixel build at stage 2's [5,432,576,16] with planes
@@ -138,7 +139,18 @@ exit code is not 0):
              timed beside it with its bound; then a bf16 CasMVSNet through
              ``make_infer_step``, one forward under the sync debug mode
              "error" with the launch counts reset just before it (K1 and K2
-             once per plane and twice per pixel).
+             once per plane and twice per pixel, 30 BatchNorm eval launches);
+ 15. batchnorm the BatchNorm3d + ReLU kernels at the cells' full-resolution
+             8-channel volumes ([1,8,192,144,200], [1,8,8,864,1152],
+             [4,8,192,128,160], bf16): the eval forward, the training
+             forward and the backward, each held to the plain version (the
+             forwards within 1 bf16 ulp, the statistics within 1e-5 of f64,
+             dx within 2 ulps of ATen's backward, two runs bit-equal) and
+             timed beside it, beside ATen's BatchNorm alone and its bound;
+             then the BatchNorm launches of one forward of each model (10 a
+             bf16 MVSNet eval, 9 with K4, 30 a CasMVSNet request, 30 + 30 a
+             train step). The other phases' launch checks leave these
+             kernels out.
 The kernels' JSON line, then {"ok": true, "device": {...}} close the output.
 
 There is no CPU fallback: without a CUDA device the script exits at once.
@@ -234,6 +246,11 @@ RANK_TIMEOUT_S = 600  # a spawned gloo rank's time limit
 # the cascade phase: CasMVSNet at its DTU test setting (the phase's
 # features are random, its planes the cascade's own from a smooth depth map)
 CAS_NDEPTHS, CAS_RATIOS = (48, 32, 8), (4, 2, 1)
+
+# the BatchNorm phase: the cells' full-resolution 8-channel volumes (dtu_request's
+# conv0 and conv11, casmvs_dtu_request's stage 3, dtu_train's at B = 4)
+BN_SHAPES = ((1, 8, 192, 144, 200), (1, 8, 8, 864, 1152), (4, 8, 192, 128, 160))
+BN_KERNELS = ("batch_norm_eval", "batch_norm_train", "batch_norm_backward")
 CAS_CHANNELS = (32, 16, 8)  # the FPN's stage widths
 CAS_FORWARDS = 5  # timed bf16 forwards after the checked one
 # the bench phase: the trims of train_e2e (4 views: 28 samples an epoch, 2
@@ -425,7 +442,8 @@ def phase_build():
 
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import build_cuda_library
 
-    names = ("sweep_variance", "softmax_regression", "paired_grad", "warp_grad", "conv0_fused", "plane_sweep_warp")
+    names = ("sweep_variance", "softmax_regression", "paired_grad", "warp_grad", "conv0_fused", "plane_sweep_warp",
+             "batch_norm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process each, side by side
         results = dict(zip(names, pool.map(build_cuda_library, names)))
@@ -2042,7 +2060,8 @@ def phase_parallel(repo: Path, gen, initial: dict, plain_step_s: float, scan_map
 
 def phase_api(gen, scan_maps: tuple) -> dict:
     """The JAX package's API ported last, on the card, with the launch counts
-    set to 0 before and read after (the path runs no hand-written kernel):
+    set to 0 before and read after (the path runs no hand-written kernel but
+    the BatchNorm kernels, phase 15's):
     geometric_filter_stack for every reference view of the eval phase's
     16-view scan (its count held equal to fuse_reference_view's), and
     Hourglass3d(8) in bf16 eval mode on CostRegNet's conv0 output at the
@@ -2128,10 +2147,11 @@ def phase_api(gen, scan_maps: tuple) -> dict:
                f"{API_HOURGLASS_TOL:.0e} x {scale:.3e}")
     if not err <= API_HOURGLASS_TOL * scale:
         raise AssertionError("Hourglass3d on the card disagrees with the CPU")
-    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    launched = without_bn(kernels.launch_counts())
     if launched:
         raise AssertionError(f"the api phase launched hand-written kernels: {launched}")
-    log("api", f"phase done in {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched")
+    log("api", f"phase done in {time.perf_counter() - t_phase:.1f} s; no hand-written kernel launched but "
+               f"Hourglass3d's BatchNorm ({kernels.launch_counts()['batch_norm_eval']} eval launches)")
     return {}
 
 
@@ -2580,7 +2600,7 @@ def phase_bench(repo: Path, gen) -> dict:
         here, children = kernels.launch_counts(), kernels.read_launch_log(launch_log)
         counts = {k: here[k] + children[k] for k in here}
         check_bench_line(name, line, required)
-        launched = {k: n for k, n in counts.items() if n}
+        launched = without_bn(counts)
         if set(launched) != path:
             raise AssertionError(f"bench {name} launched {counts}; its path is {sorted(path)}")
         by_entry[name] = counts
@@ -2873,7 +2893,7 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
                        f"(median after the first {step_s[tag]:.4f}); losses {', '.join(f'{x:.4f}' for x in losses)}; "
                        f"peak device memory {peaks[tag]:.2f} GiB; kernel launches "
                        f"{ {k: c for k, c in counts.items() if c} }")
-        if {k: c for k, c in counts.items() if c} != want or not all(math.isfinite(x) for x in losses):
+        if without_bn(counts) != want or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"train_BlenderDS {tag} steps: launches {counts} (want {want}) or losses {losses}")
         if tag == "bf16":
             timer = StageTimer(m, opt)
@@ -2901,7 +2921,7 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
         n_test = len(dataset(preset, "test"))
         want = {"sweep_variance_emit": steps * args["batch_size"], "paired_grad": steps, "warp_grad": steps,
                 "sweep_variance": n_test, "softmax_regression": -(-n_test // args["batch_size"])}
-        launched = {k: c for k, c in counts.items() if c}
+        launched = without_bn(counts)
         first_loss = _grab(r"Iter 0/\d+, LR:[^,]*, loss=([-\d.naif]+)", out)
         test_loss = _grab(r"avg_test_scalars: \{'loss': ([-\d.naife+]+)", out)
         train_wall = _grab(r"epoch 0 train wall: ([\d.]+)s", out)
@@ -2937,7 +2957,7 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
             argv, env = ["--testpath", str(testpath), "--loadckpt", str(ckpt), "--outdir", str(outdir)], {}
         wall, counts, out = run_recipe(repo, preset, argv, env, work / f"{case.replace(' ', '_')}.log")
         n = n_views[preset]
-        launched = {k: c for k, c in counts.items() if c}
+        launched = without_bn(counts)
         acq = outdir / testpath.name
         views = sorted(int(f[:-4]) for f in os.listdir(acq / scan / "depth_est") if f.endswith(".pfm"))
         files = [acq / scan / f"{kind}/{v:0>8}.pfm" for kind in ("depth_est", "confidence") for v in views]
@@ -3129,7 +3149,7 @@ def phase_cascade(gen) -> list[dict]:
                              f"[{depth.min().item()}, {depth.max().item()}], conf [{conf.min().item()}, "
                              f"{conf.max().item()}]")
     want = {"sweep_variance": 1, "sweep_variance_per_pixel": 2, "softmax_regression": 1,
-            "softmax_regression_per_pixel": 2}
+            "softmax_regression_per_pixel": 2, "batch_norm_eval": 30}
     if counts != want:
         raise AssertionError(f"one CasMVSNet forward launched {counts}, not {want}")
     forward_ms = [cuda_time_ms(lambda: infer(*request), 1) for _ in range(CAS_FORWARDS)]
@@ -3142,6 +3162,191 @@ def phase_cascade(gen) -> list[dict]:
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["launches_per"] = f"{counts[row['name']]} per request"
+    return rows
+
+
+def without_bn(counts: dict) -> dict:
+    """The nonzero launch counts but the BatchNorm kernels': every 3D
+    BatchNorm of the port launches them (phase 15 holds their counts)."""
+    return {k: n for k, n in counts.items() if n and k not in BN_KERNELS}
+
+
+def device_ms_per_call(fn, iters: int, names: tuple[str, ...]) -> float | None:
+    """Device ms a call of ``fn``: the CUDA kernels whose names hold one of
+    ``names``, summed over ``iters`` calls by torch.profiler (None where it
+    saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names)]
+    return sum(spans) / 1e3 / iters if spans else None
+
+
+def phase_batchnorm(gen) -> list[dict]:
+    """The BatchNorm3d + ReLU kernels (``ops/kernels/batch_norm.py``) at the
+    cells' full-resolution volumes (BN_SHAPES, bf16): the eval forward, the
+    training forward (statistics and transform) and the backward, each held
+    to the plain version (F.batch_norm with flax's running variance, then
+    F.relu, and autograd through both) and timed beside it and beside
+    ATen's BatchNorm alone (``library_ms``), with the device ms of its
+    kernels and its bound (the volumes read once and written once); dgamma
+    and dbeta against f64 sums of the same terms. Then the
+    launches of one forward of each model: a bf16 MVSNet eval forward at the
+    headline (10 eval launches, 9 with K4), one bf16 train step at the recipe
+    (30 training and 30 backward launches) and a bf16 CasMVSNet request (30
+    eval launches, phase 14's counts besides)."""
+    import torch
+    import torch.nn.functional as F
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, find_model_def, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.models.blocks import BatchNorm3d
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import kernels
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import batch_norm as kbn
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
+    from scene_3dreconstruction_mvsnet_tpu_torch.train import make_optimizer, make_scheduler, make_train_step
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    names = ("bn_transform_kernel", "bn_stats_", "bn_backward_")
+    rows, failed = [], []
+    for shape in BN_SHAPES:
+        bn = random_init_(BatchNorm3d(shape[1]).to(dev), gen)
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.7 + 0.4).to(bf16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        vol = x.numel() * x.element_size()
+        rm, rv, w, b = bn.running_mean, bn.running_var, bn.weight.detach(), bn.bias.detach()
+        case = "x".join(map(str, shape))
+
+        bn.eval()
+        with torch.no_grad():
+            y, want = kbn.batch_norm_relu(bn, x, True), kbn.batch_norm_relu_plain(bn, x, True)
+            eval_ulps = bf16_ulps(y, want, 1e-4 * want.float().abs().max().item())
+            t = timed_pair(lambda: kbn.batch_norm_relu(bn, x, True), lambda: kbn.batch_norm_relu_plain(bn, x, True),
+                           iters=20, plain_iters=20, kernel="bn_transform_kernel",
+                           library_fn=lambda: F.batch_norm(x, rm, rv, w, b, False, 0.0, bn.eps))
+        eval_row = {"pass": "eval", "ms": t[0], "plain_ms": t[1], "library_ms": t[2], "device_ms": t[3],
+                    **bound(2 * vol, 0, "f32"), "max_ulps": eval_ulps}
+
+        bn.train()
+        with torch.no_grad():
+            y, coef = kbn._forward(x, bn, True, keep_coef=True)
+            want = kbn.batch_norm_relu_plain(bn, x, True)
+            train_ulps = bf16_ulps(y, want, 1e-4 * want.float().abs().max().item())
+            dims = (0, 2, 3, 4)
+            x64 = x.double()
+            mean64, var64 = x64.mean(dims), x64.var(dims, unbiased=False)
+            stat_err = max(((coef[0].double() - mean64).abs() / (mean64.abs() + var64.sqrt())).max().item(),
+                           ((coef[1].double() * (var64 + bn.eps).sqrt() - 1).abs()).max().item())
+            del x64
+            t = timed_pair(lambda: kbn.batch_norm_relu(bn, x, True), lambda: kbn.batch_norm_relu_plain(bn, x, True),
+                           iters=20, plain_iters=20, kernel="bn_transform_kernel",
+                           library_fn=lambda: F.batch_norm(x, None, None, w, b, True, 0.1, bn.eps))
+            dev_ms = device_ms_per_call(lambda: kbn.batch_norm_relu(bn, x, True), 10, names)
+        train_row = {"pass": "train", "ms": t[0], "plain_ms": t[1], "library_ms": t[2], "device_ms": dev_ms,
+                     **bound(2 * vol, 0, "f32"), "max_ulps": train_ulps, "stats_rel_err": stat_err}
+
+        # backward: the kernels from the saved x and coefficients; the plain
+        # version autograd through F.batch_norm and F.relu; ATen's backward alone
+        xg = x.detach().requires_grad_()
+        wg, bg = bn.weight, bn.bias
+        plain_y = kbn.batch_norm_relu_plain(bn, xg, True)
+        mask = (y > 0).to(bf16)
+
+        def plain_bwd():
+            return torch.autograd.grad(plain_y, (xg, wg, bg), dy, retain_graph=True)
+
+        _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(x, w, b, None, None, True, 0.1, bn.eps)[:3]
+        gm = (dy * mask).contiguous()
+
+        def library_bwd():
+            return torch.ops.aten.native_batch_norm_backward(gm, x, w, None, None, save_mean, save_invstd, True,
+                                                             bn.eps, [True, True, True])
+
+        got = kbn._backward(x, dy, coef, True, True)
+        ref = library_bwd()
+        dx_ulps = bf16_ulps(got[0], ref[0], 1e-3 * ref[0].float().abs().max().item())
+        # dgamma and dbeta against f64 sums of the same terms, over the sums of their sizes
+        g64 = dy.double() * mask.double()
+        xhat64 = (x.double() - mean64.view(-1, 1, 1, 1)) * (var64 + bn.eps).rsqrt().view(-1, 1, 1, 1)
+        sums = ((g64 * xhat64).sum(dims), g64.sum(dims))
+        sizes = ((g64 * xhat64).abs().sum(dims), g64.abs().sum(dims))
+        del g64, xhat64
+        dparam_err, aten_err = (max(((p.double() - w).abs() / n).max().item() for p, w, n in zip(ps, sums, sizes))
+                                for ps in (got[1:], ref[1:]))
+        again = kbn._backward(x, dy, coef, True, True)
+        same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+        t = timed_pair(lambda: kbn._backward(x, dy, coef, True, True), plain_bwd, iters=20, plain_iters=20,
+                       kernel="bn_backward_dx_kernel", library_fn=library_bwd)
+        dev_ms = device_ms_per_call(lambda: kbn._backward(x, dy, coef, True, True), 10, names)
+        bwd_row = {"pass": "backward", "ms": t[0], "plain_ms": t[1], "library_ms": t[2], "device_ms": dev_ms,
+                   **bound(3 * vol, 0, "f32"), "max_ulps": dx_ulps, "dparam_rel_err": dparam_err,
+                   "library_dparam_rel_err": aten_err, "repeats_bits": same_bits}
+        del xg, plain_y, gm, got, ref, again
+        for row in (eval_row, train_row, bwd_row):
+            log("batchnorm", f"{case} bf16 {row['pass']}: kernels {row['ms']:.4f} ms (device "
+                             f"{fmt_ms(row['device_ms'])}), plain {row['plain_ms']:.4f} ms, ATen's BatchNorm alone "
+                             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                             f"max {row['max_ulps']:.3f} bf16 ulps against "
+                             f"{'ATen' if row['pass'] == 'backward' else 'the plain version'}"
+                             + (f"; statistics within {stat_err:.2e} of f64" if row["pass"] == "train" else "")
+                             + (f"; dgamma, dbeta within {dparam_err:.2e} of f64 x the sums of |terms| (ATen's "
+                                f"{aten_err:.2e}); two runs {'equal' if same_bits else 'DIFFER'}"
+                                if row["pass"] == "backward" else ""))
+            rows.append({"name": f"batch_norm_{row.pop('pass')}", "route": "cuda", "case": case,
+                         "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/batch_norm.cu",
+                         "replaces": "none: flax's BatchNorm, compiled by XLA", "shape": f"[{case}] bf16", **row})
+        if not (eval_ulps <= 1.0 and train_ulps <= 1.0 and stat_err <= 1e-5 and dx_ulps <= 2.0
+                and dparam_err <= 1e-5 and same_bits):
+            failed.append(case)
+        del x, dy, y, want, coef, mask
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the BatchNorm kernels disagree with their plain versions at {failed}")
+
+    # the launches of one forward of each model
+    counts = {}
+    projs, dv = headline_rig(REF_CAMERAS[0])
+    imgs = torch.randint(0, 256, (1, V, H, W, 3), generator=torch.Generator().manual_seed(SEED), dtype=torch.uint8)
+    request = (imgs, torch.from_numpy(projs)[None], torch.from_numpy(dv)[None])
+    for tag, model in (("MVSNet eval", MVSNet(dtype=bf16)), ("MVSNet eval, K4", MVSNet(dtype=bf16, fused_conv0=True)),
+                       ("CasMVSNet request", find_model_def("casmvsnet")(dtype=bf16, ndepths=CAS_NDEPTHS,
+                                                                          depth_interval_ratio=CAS_RATIOS))):
+        infer = make_infer_step(random_init_(model.to(dev), gen), dev)
+        infer(*request)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        infer(*request)
+        torch.cuda.synchronize()
+        counts[tag] = {k: n for k, n in kernels.launch_counts().items() if n and k in BN_KERNELS}
+        del model, infer
+    model = random_init_(MVSNet(dtype=bf16).to(dev), gen)
+    opt = make_optimizer(model, T_LR)
+    step = make_train_step(model, opt, make_scheduler(opt, T_LREPOCHS, 1000), dev)
+    batch = PlaneScene().batch()
+    step(batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step(batch)
+    torch.cuda.synchronize()
+    counts["MVSNet train step"] = {k: n for k, n in kernels.launch_counts().items() if n and k in BN_KERNELS}
+    want = {"MVSNet eval": {"batch_norm_eval": 10}, "MVSNet eval, K4": {"batch_norm_eval": 9},
+            "CasMVSNet request": {"batch_norm_eval": 30},
+            "MVSNet train step": {"batch_norm_train": 30, "batch_norm_backward": 30}}
+    log("batchnorm", "BatchNorm kernel launches of one forward: " + "; ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != want:
+        raise AssertionError(f"the BatchNorm kernels launched {counts}, not {want}")
+    for row in rows:
+        row["launches_per"] = {"batch_norm_eval": "1 per BatchNorm3d eval forward (10 per CostRegNet)",
+                               "batch_norm_train": "3 per BatchNorm3d training forward (30 per train step)",
+                               "batch_norm_backward": "3 per BatchNorm3d backward (30 per train step)"}[row["name"]]
     return rows
 
 
@@ -3302,6 +3507,7 @@ def main() -> None:
         row.update(extra.get(row["name"], {}))
     rows += phase_recipes(repo, gen)  # the five presets through the runner, and the kernels at their shapes
     rows += phase_cascade(gen)  # K1 and K2 per pixel at CasMVSNet's stages 2 and 3, and its forward's launches
+    rows += phase_batchnorm(gen)  # the BatchNorm3d + ReLU kernels, and their launches in each model
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "scene_3dreconstruction_mvsnet_tpu"))
     if leaked:

@@ -4,15 +4,16 @@ Counterpart of the non-flat blocks of
 ``scene_3dreconstruction_mvsnet_tpu/models/blocks.py``. Module names follow
 the reference's state-dict keys (``conv``/``bn``; ``0``/``1`` for the
 transposed-conv stages), so the JAX package's exported weights load with
-``strict=True``. BatchNorm is torch's kernel with flax's training
-semantics: eps 1e-5, running-stat momentum 0.1 (flax's 0.9), and the running
-variance updated with the biased batch variance, as flax does (torch's own
-BatchNorm uses the unbiased one).
+``strict=True``. BatchNorm has flax's training semantics: eps 1e-5,
+running-stat momentum 0.1 (flax's 0.9), and the running variance updated
+with the biased batch variance, as flax does (torch's own BatchNorm uses
+the unbiased one).
 
 Parameters stay f32. Every conv computes in the dtype of its input (bf16 on
 the fast path, f32 otherwise) with its weights cast to it, as the JAX blocks
 cast params to the computation dtype; BatchNorm takes the low-precision input
-with its f32 parameters.
+with its f32 parameters. A 3D block's BatchNorm and the ReLU after it run as
+the hand-written kernels of ``ops/kernels/batch_norm.py`` on a CUDA tensor.
 
 In training, a BatchNorm whose ``process_group`` holds more than one rank
 (set by ``parallel.make_sharded_train_step``) takes its statistics over the
@@ -34,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.batch_norm import batch_norm_relu, batch_norm_relu_plain
 from ..parallel.collectives import all_reduce_sum, world_size
 from ..parallel.halo import exchange_halos
 from ..utils import tracing
@@ -42,35 +44,25 @@ from ..utils import tracing
 class _FlaxRunningVar:
     """BatchNorm whose training step updates the running variance with the
     biased batch variance, as flax's BatchNorm does
-    (``scene_3dreconstruction_mvsnet_tpu/models/blocks.py:118-124``).
+    (``scene_3dreconstruction_mvsnet_tpu/models/blocks.py:118-124``), with
+    the ReLU that follows it when called with ``relu=True``.
 
-    torch's kernel normalises with the biased variance but adds
-    ``momentum * var * n / (n - 1)`` to the running variance. The kernel
-    updates a copy of the running variance (autograd keeps that copy, so the
-    buffer may change after the call); the batch term is recovered from the
-    copy's update and rescaled by ``(n - 1) / n``. The activation is read
-    once: an explicit f32 variance of a bf16 activation would read it again
-    and hold an f32 copy. Normalisation and the running-stat update run in
-    f32 inside torch's kernel for bf16 input."""
+    ``normalize`` computes it: torch's kernels with the running variance
+    rescaled (``ops/kernels/batch_norm.py::batch_norm_relu_plain``) for
+    BatchNorm2d; for BatchNorm3d the hand-written kernels on a CUDA tensor,
+    which give the biased variance directly, and the same plain version on
+    a CPU tensor. Normalisation and the running-stat update run in f32 for
+    bf16 input."""
 
     process_group = None  # the ranks whose batches make the global batch
     recomputing = False  # set while a checkpointed segment is recomputed
+    normalize = staticmethod(batch_norm_relu_plain)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        if world_size(self.process_group) > 1:
-            return self._global_batch_norm(x)
-        n = x.numel() // x.shape[1]
-        mean = self.running_mean.clone() if self.recomputing else self.running_mean
-        updated = self.running_var.clone()
-        y = F.batch_norm(x, mean, updated, self.weight, self.bias, True, self.momentum, self.eps)
-        if not self.recomputing:
-            self.num_batches_tracked.add_(1)
-            with torch.no_grad():
-                keep = (1.0 - self.momentum) * self.running_var  # flax: 0.9 * running var
-                self.running_var.copy_((updated - keep) * ((n - 1) / n) + keep)
-        return y
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        if self.training and world_size(self.process_group) > 1:
+            y = self._global_batch_norm(x)
+            return F.relu(y) if relu else y
+        return self.normalize(self, x, relu)
 
     def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         """Batch statistics over every rank's batch: the per-channel sum, then
@@ -99,7 +91,7 @@ class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
 
 
 class BatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
-    pass
+    normalize = staticmethod(batch_norm_relu)  # the kernels on a CUDA tensor
 
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
@@ -243,8 +235,7 @@ class ConvBnReLU3D(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
-        x = self.bn(conv(self.conv, x, sweep))
-        return F.relu(x) if self.relu else x
+        return self.bn(conv(self.conv, x, sweep), relu=self.relu)
 
 
 class ConvTransposeBnReLU3D(nn.Sequential):
@@ -270,8 +261,7 @@ class ConvTransposeBnReLU3D(nn.Sequential):
         if sweep is not None:
             x = exchange_halos(x, 2, 0, 1, sweep.group)
         x = _ConvTransposeK3S2.apply(x, _cast(deconv.weight, x.dtype), sweep is not None)
-        x = bn(x)
-        return F.relu(x) if self.relu else x
+        return bn(x, relu=self.relu)
 
 
 class BasicBlock(nn.Module):

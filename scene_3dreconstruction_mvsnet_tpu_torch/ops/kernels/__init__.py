@@ -128,7 +128,8 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtypes, ndim: int, device, ali
 
 LAUNCH_LOG_ENV = "MVSNET_TORCH_LAUNCH_LOG"
 KERNEL_NAMES = ("sweep_variance", "sweep_variance_emit", "softmax_regression", "paired_grad", "warp_grad",
-                "conv0_fused", "plane_sweep_warp", "sweep_variance_per_pixel", "softmax_regression_per_pixel")
+                "conv0_fused", "plane_sweep_warp", "sweep_variance_per_pixel", "softmax_regression_per_pixel",
+                "batch_norm_eval", "batch_norm_train", "batch_norm_backward")
 
 
 def launch_counts() -> dict[str, int]:
@@ -136,25 +137,32 @@ def launch_counts() -> dict[str, int]:
     ``sweep_variance`` counts K1's launches with one depth per plane and
     without the emitted warps, ``sweep_variance_emit`` those with the warps,
     ``sweep_variance_per_pixel`` those with per-pixel depths; K2's split the
-    same way. A launch is counted under one name."""
-    from . import conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance, warp_grad
+    same way; the BatchNorm kernels count each pass's launches (1 an eval
+    forward, 3 a training forward, 3 a backward). A launch is counted under
+    one name."""
+    from . import (batch_norm, conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance,
+                   warp_grad)
 
     k1, k2 = sweep_variance, softmax_regression
     return {"sweep_variance": k1.LAUNCHES - k1.EMIT_LAUNCHES - k1.PER_PIXEL_LAUNCHES,
             "sweep_variance_emit": k1.EMIT_LAUNCHES, "softmax_regression": k2.LAUNCHES - k2.PER_PIXEL_LAUNCHES,
             "paired_grad": paired_grad.LAUNCHES, "warp_grad": warp_grad.LAUNCHES,
             "conv0_fused": conv0_fused.LAUNCHES, "plane_sweep_warp": plane_sweep_warp.LAUNCHES,
-            "sweep_variance_per_pixel": k1.PER_PIXEL_LAUNCHES, "softmax_regression_per_pixel": k2.PER_PIXEL_LAUNCHES}
+            "sweep_variance_per_pixel": k1.PER_PIXEL_LAUNCHES, "softmax_regression_per_pixel": k2.PER_PIXEL_LAUNCHES,
+            "batch_norm_eval": batch_norm.EVAL_LAUNCHES, "batch_norm_train": batch_norm.TRAIN_LAUNCHES,
+            "batch_norm_backward": batch_norm.BACKWARD_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from . import conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance, warp_grad
+    from . import (batch_norm, conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance,
+                   warp_grad)
 
     for module in (conv0_fused, paired_grad, plane_sweep_warp, softmax_regression, sweep_variance, warp_grad):
         module.LAUNCHES = 0
     sweep_variance.EMIT_LAUNCHES = 0
     sweep_variance.PER_PIXEL_LAUNCHES = softmax_regression.PER_PIXEL_LAUNCHES = 0
+    batch_norm.EVAL_LAUNCHES = batch_norm.TRAIN_LAUNCHES = batch_norm.BACKWARD_LAUNCHES = 0
 
 
 def read_launch_log(path: str | os.PathLike) -> dict[str, int]:

@@ -280,3 +280,30 @@ def test_recipe_kernel_shapes_are_the_presets(smoke):
     bds8 = smoke.RECIPE_EVAL_TREES["eval_BlenderDS"]
     assert bds8[0] == "bds8" and bds8[1] == 49 and bds8[3] == (30, 34, 46, 47)
     assert smoke.RECIPE_EVAL_TREES["eval_DTU"][1] >= 11  # NviewFilter 10 sources and the reference
+
+
+def test_batchnorm_shapes_are_the_cells_volumes(smoke):
+    """The BatchNorm phase's volumes are the cells' full-resolution 8-channel
+    CostRegNet volumes: dtu_request's and dtu_train's at a quarter of the
+    image with every plane, casmvs_dtu_request's stage 3 at the full image
+    with its last stage's planes."""
+    import json
+
+    mvs = json.loads((REPO / "mvsbench/configs/mvsnet_dtu.json").read_text())
+    cas = json.loads((REPO / "mvsbench/configs/casmvsnet_dtu.json").read_text())
+    ev, tr = mvs["eval"], mvs["train"]
+    want = {(1, 8, ev["numdepth"], ev["img_hw"][0] // 4, ev["img_hw"][1] // 4),
+            (cas["eval"]["batch"], cas["cr_base_chs"][2], cas["ndepths"][2], *cas["eval"]["img_hw"]),
+            (tr["batch"], 8, tr["numdepth"], tr["img_hw"][0] // 4, tr["img_hw"][1] // 4)}
+    assert set(smoke.BN_SHAPES) == want
+
+
+def test_without_bn_drops_only_the_batchnorm_kernels(smoke):
+    """The other phases' launch checks see every kernel but the BatchNorm
+    kernels, and no zero count."""
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    counts = dict.fromkeys(KERNEL_NAMES, 2)
+    kept = smoke.without_bn(counts)
+    assert set(kept) == set(KERNEL_NAMES) - set(smoke.BN_KERNELS) and set(smoke.BN_KERNELS) <= set(KERNEL_NAMES)
+    assert smoke.without_bn(dict(counts, sweep_variance=0)).keys() == kept.keys() - {"sweep_variance"}
