@@ -7,8 +7,8 @@ Phases (each prints lines tagged with its name; any failure raises and the
 exit code is not 0):
   1. device  the card's name, and name + power limit from nvidia-smi;
   2. build   the sweep-variance, softmax-regression, paired backward-terms,
-             warp-backward, fused-conv0, single-view warp and BatchNorm
-             CUDA kernels
+             warp-backward, fused-conv0, single-view warp, BatchNorm and
+             prob-conv CUDA kernels
              (nvcc, sm_90a, one compiler process each, started together),
              from the checkout's sources;
   3. kernels each kernel against its plain PyTorch version, with times from
@@ -126,7 +126,8 @@ exit code is not 0):
              timed beside it with its bound; then a bf16 CasMVSNet through
              ``make_infer_step``, one forward under the sync debug mode
              "error" with the launch counts reset just before it (K1 and K2
-             once per plane and twice per pixel, 30 BatchNorm eval launches);
+             once per plane and twice per pixel, 30 BatchNorm eval launches,
+             3 prob conv launches);
  14. batchnorm the BatchNorm3d + ReLU kernels at the cells' full-resolution
              8-channel volumes ([1,8,192,144,200], [1,8,8,864,1152],
              [4,8,192,128,160], bf16): the eval forward, the training
@@ -138,6 +139,18 @@ exit code is not 0):
              bf16 MVSNet eval, 9 with K4, 30 a CasMVSNet request, 30 + 30 a
              train step). The other phases' launch checks leave these
              kernels out.
+ 15. prob      CostRegNet's prob conv kernels (8 -> 1, 3x3x3) at the cells'
+             shapes ([1,8,192,144,200], the cascade's [1,8,48,216,288],
+             [1,8,32,432,576] and [1,8,8,864,1152], [4,8,192,128,160], bf16):
+             the forward and the backward (input, weight and bias
+             gradients), each held to the plain version (F.conv3d in f32 of
+             the same inputs, TF32 off: the output and the input gradient
+             within 1 bf16 ulp, the weight and bias gradients within one of
+             the largest; the backward's bits repeat) and timed beside it,
+             beside cuDNN's bf16 conv (the yardstick, which the port does not
+             call) and its bound; then their launches in one forward of each
+             model (1 a MVSNet eval, with K4 too, 3 a CasMVSNet request, 1 + 3
+             a train step). The other phases' launch checks count them too.
 The kernels' JSON line, then {"ok": true, "device": {...}} close the output.
 
 There is no CPU fallback: without a CUDA device the script exits at once.
@@ -238,6 +251,11 @@ CAS_NDEPTHS, CAS_RATIOS = (48, 32, 8), (4, 2, 1)
 # conv0 and conv11, casmvs_dtu_request's stage 3, dtu_train's at B = 4)
 BN_SHAPES = ((1, 8, 192, 144, 200), (1, 8, 8, 864, 1152), (4, 8, 192, 128, 160))
 BN_KERNELS = ("batch_norm_eval", "batch_norm_train", "batch_norm_backward")
+# the prob phase: the cells' prob inputs (dtu_request's, the cascade's three
+# stages', dtu_train's at B = 4), with MVSNet's bias where the cell's model has one
+PROB_SHAPES = (((1, 8, 192, 144, 200), True), ((1, 8, 48, 216, 288), False), ((1, 8, 32, 432, 576), False),
+               ((1, 8, 8, 864, 1152), False), ((4, 8, 192, 128, 160), True))
+PROB_KERNELS = ("prob_conv", "prob_conv_backward")
 CAS_CHANNELS = (32, 16, 8)  # the FPN's stage widths
 CAS_FORWARDS = 5  # timed bf16 forwards after the checked one
 # the recipes phase: each preset of configs/workloads.json through the port's
@@ -411,7 +429,7 @@ def phase_build():
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import build_cuda_library
 
     names = ("sweep_variance", "softmax_regression", "paired_grad", "warp_grad", "conv0_fused", "plane_sweep_warp",
-             "batch_norm")
+             "batch_norm", "prob_conv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process each, side by side
         results = dict(zip(names, pool.map(build_cuda_library, names)))
@@ -2748,7 +2766,8 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
         counts = kernels.launch_counts()
         peaks[tag] = torch.cuda.max_memory_allocated() / 2**30
         step_s[tag] = statistics.median(secs[1:])
-        want = {"sweep_variance_emit": n * bds8["batch_size"], "paired_grad": n, "warp_grad": n}
+        want = {"sweep_variance_emit": n * bds8["batch_size"], "paired_grad": n, "warp_grad": n, "prob_conv": n,
+                "prob_conv_backward": 3 * n}
         log("recipes", f"train_BlenderDS {tag} step in this process: seconds {', '.join(f'{x:.4f}' for x in secs)} "
                        f"(median after the first {step_s[tag]:.4f}); losses {', '.join(f'{x:.4f}' for x in losses)}; "
                        f"peak device memory {peaks[tag]:.2f} GiB; kernel launches "
@@ -2781,6 +2800,7 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
         n_test = len(dataset(preset, "test"))
         want = {"sweep_variance_emit": steps * args["batch_size"], "paired_grad": steps, "warp_grad": steps,
                 "sweep_variance": n_test, "softmax_regression": -(-n_test // args["batch_size"])}
+        want.update(prob_conv=steps + want["softmax_regression"], prob_conv_backward=3 * steps)
         launched = without_bn(counts)
         first_loss = _grab(r"Iter 0/\d+, LR:[^,]*, loss=([-\d.naif]+)", out)
         test_loss = _grab(r"avg_test_scalars: \{'loss': ([-\d.naife+]+)", out)
@@ -2863,8 +2883,9 @@ def phase_recipes(repo: Path, gen) -> list[dict]:
                        f"{ref_view} vs the plain path on the card: depth max|err| {d_err:.3e} vs {d_tol:.3e}, conf "
                        f"max|err| {c_err:.3e} vs {SLICE_CONF_ATOL:.0e} ({int(near_int.sum().item())} pixels excluded "
                        "near an integer index)")
-        if launched != {"sweep_variance": n, "softmax_regression": n}:
-            raise AssertionError(f"{case}: K1 and K2 must launch once per view ({n}) and nothing else: {launched}")
+        if launched != {"sweep_variance": n, "softmax_regression": n, "prob_conv": n}:
+            raise AssertionError(f"{case}: K1, K2 and the prob conv must launch once per view ({n}) and nothing "
+                                 f"else: {launched}")
         if not d_err <= d_tol or not c_err <= SLICE_CONF_ATOL:
             raise AssertionError(f"{case}: the depth map disagrees with the plain path")
         del m, feats, cost
@@ -3009,7 +3030,7 @@ def phase_cascade(gen) -> list[dict]:
                              f"[{depth.min().item()}, {depth.max().item()}], conf [{conf.min().item()}, "
                              f"{conf.max().item()}]")
     want = {"sweep_variance": 1, "sweep_variance_per_pixel": 2, "softmax_regression": 1,
-            "softmax_regression_per_pixel": 2, "batch_norm_eval": 30}
+            "softmax_regression_per_pixel": 2, "batch_norm_eval": 30, "prob_conv": 3}
     if counts != want:
         raise AssertionError(f"one CasMVSNet forward launched {counts}, not {want}")
     forward_ms = [cuda_time_ms(lambda: infer(*request), 1) for _ in range(CAS_FORWARDS)]
@@ -3049,6 +3070,48 @@ def device_ms_per_call(fn, iters: int, names: tuple[str, ...]) -> float | None:
     return sum(spans) / 1e3 / iters if spans else None
 
 
+def launches_of_each_model(gen, names: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    """The nonzero launches of the kernels ``names`` in one forward of each
+    model, counted after a warm-up: a bf16 MVSNet eval forward at the
+    headline, the same with K4, a bf16 CasMVSNet request, and one bf16 train
+    step at the recipe (forward and backward), each with weights from
+    ``gen``."""
+    import torch
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, find_model_def, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops import kernels
+    from scene_3dreconstruction_mvsnet_tpu_torch.train import make_optimizer, make_scheduler, make_train_step
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    counts = {}
+    projs, dv = headline_rig(REF_CAMERAS[0])
+    imgs = torch.randint(0, 256, (1, V, H, W, 3), generator=torch.Generator().manual_seed(SEED), dtype=torch.uint8)
+    request = (imgs, torch.from_numpy(projs)[None], torch.from_numpy(dv)[None])
+    for tag, model in (("MVSNet eval", MVSNet(dtype=bf16)), ("MVSNet eval, K4", MVSNet(dtype=bf16, fused_conv0=True)),
+                       ("CasMVSNet request", find_model_def("casmvsnet")(dtype=bf16, ndepths=CAS_NDEPTHS,
+                                                                          depth_interval_ratio=CAS_RATIOS))):
+        infer = make_infer_step(random_init_(model.to(dev), gen), dev)
+        infer(*request)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        infer(*request)
+        torch.cuda.synchronize()
+        counts[tag] = {k: n for k, n in kernels.launch_counts().items() if n and k in names}
+        del model, infer
+    model = random_init_(MVSNet(dtype=bf16).to(dev), gen)
+    opt = make_optimizer(model, T_LR)
+    step = make_train_step(model, opt, make_scheduler(opt, T_LREPOCHS, 1000), dev)
+    batch = PlaneScene().batch()
+    step(batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step(batch)
+    torch.cuda.synchronize()
+    counts["MVSNet train step"] = {k: n for k, n in kernels.launch_counts().items() if n and k in names}
+    return counts
+
+
 def phase_batchnorm(gen) -> list[dict]:
     """The BatchNorm3d + ReLU kernels (``ops/kernels/batch_norm.py``) at the
     cells' full-resolution volumes (BN_SHAPES, bf16): the eval forward, the
@@ -3065,13 +3128,10 @@ def phase_batchnorm(gen) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
-    from scene_3dreconstruction_mvsnet_tpu_torch.infer import make_infer_step
-    from scene_3dreconstruction_mvsnet_tpu_torch.models import MVSNet, find_model_def, random_init_
+    from scene_3dreconstruction_mvsnet_tpu_torch.models import random_init_
     from scene_3dreconstruction_mvsnet_tpu_torch.models.blocks import BatchNorm3d
-    from scene_3dreconstruction_mvsnet_tpu_torch.ops import kernels
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import batch_norm as kbn
     from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
-    from scene_3dreconstruction_mvsnet_tpu_torch.train import make_optimizer, make_scheduler, make_train_step
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -3171,32 +3231,7 @@ def phase_batchnorm(gen) -> list[dict]:
     if failed:
         raise AssertionError(f"the BatchNorm kernels disagree with their plain versions at {failed}")
 
-    # the launches of one forward of each model
-    counts = {}
-    projs, dv = headline_rig(REF_CAMERAS[0])
-    imgs = torch.randint(0, 256, (1, V, H, W, 3), generator=torch.Generator().manual_seed(SEED), dtype=torch.uint8)
-    request = (imgs, torch.from_numpy(projs)[None], torch.from_numpy(dv)[None])
-    for tag, model in (("MVSNet eval", MVSNet(dtype=bf16)), ("MVSNet eval, K4", MVSNet(dtype=bf16, fused_conv0=True)),
-                       ("CasMVSNet request", find_model_def("casmvsnet")(dtype=bf16, ndepths=CAS_NDEPTHS,
-                                                                          depth_interval_ratio=CAS_RATIOS))):
-        infer = make_infer_step(random_init_(model.to(dev), gen), dev)
-        infer(*request)  # warm
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        infer(*request)
-        torch.cuda.synchronize()
-        counts[tag] = {k: n for k, n in kernels.launch_counts().items() if n and k in BN_KERNELS}
-        del model, infer
-    model = random_init_(MVSNet(dtype=bf16).to(dev), gen)
-    opt = make_optimizer(model, T_LR)
-    step = make_train_step(model, opt, make_scheduler(opt, T_LREPOCHS, 1000), dev)
-    batch = PlaneScene().batch()
-    step(batch)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    step(batch)
-    torch.cuda.synchronize()
-    counts["MVSNet train step"] = {k: n for k, n in kernels.launch_counts().items() if n and k in BN_KERNELS}
+    counts = launches_of_each_model(gen, BN_KERNELS)
     want = {"MVSNet eval": {"batch_norm_eval": 10}, "MVSNet eval, K4": {"batch_norm_eval": 9},
             "CasMVSNet request": {"batch_norm_eval": 30},
             "MVSNet train step": {"batch_norm_train": 30, "batch_norm_backward": 30}}
@@ -3207,6 +3242,96 @@ def phase_batchnorm(gen) -> list[dict]:
         row["launches_per"] = {"batch_norm_eval": "1 per BatchNorm3d eval forward (10 per CostRegNet)",
                                "batch_norm_train": "3 per BatchNorm3d training forward (30 per train step)",
                                "batch_norm_backward": "3 per BatchNorm3d backward (30 per train step)"}[row["name"]]
+    return rows
+
+
+def phase_prob(gen) -> list[dict]:
+    """CostRegNet's prob conv kernels (``ops/kernels/prob_conv.py``) at the
+    cells' inputs (PROB_SHAPES, bf16): the forward and the backward, each
+    held to the plain version (F.conv3d in f32 of the same inputs, TF32 off,
+    and ``aten.convolution_backward`` of it) and timed beside it and beside
+    cuDNN's bf16 conv and its backward (``library_ms``, what the port ran
+    before; it never calls them now), with the device ms of its kernels and
+    its bound (the input read once, the output written once, 216
+    multiply-adds an output voxel a pass at the f32 rate). Then the launches
+    of one forward of each model."""
+    import torch
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import prob_conv as kp
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    conv_bwd = torch.ops.aten.convolution_backward
+    rows, failed = [], []
+    for shape, has_bias in PROB_SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        w = (torch.randn((1, 8, 3, 3, 3), generator=gen, device=dev) * 0.2).to(bf16)
+        b = (torch.randn((1,), generator=gen, device=dev) * 0.1).to(bf16) if has_bias else None
+        xf, wf, bf = x.float(), w.float(), None if b is None else b.float()
+        voxels = shape[0] * math.prod(shape[2:])
+        case = "x".join(map(str, shape))
+
+        with torch.no_grad():
+            y, want = kp.prob_conv_cuda(x, w, b, 1), kp.prob_conv_plain(xf, wf, bf, 1)
+            fwd_ulps = bf16_ulps(y, want, 1e-4 * want.abs().max().item())
+            t = timed_pair(lambda: kp.prob_conv_cuda(x, w, b, 1), lambda: kp.prob_conv_plain(xf, wf, bf, 1),
+                           iters=20, plain_iters=5, kernel="prob_forward_kernel",
+                           library_fn=lambda: kp.prob_conv_plain(x, w, b, 1))
+        fwd_row = {"pass": "forward", "ms": t[0], "plain_ms": t[1], "library_ms": t[2], "device_ms": t[3],
+                   **bound(x.numel() * 2 + y.numel() * 2, 2 * 216 * voxels, "f32"), "max_ulps": fwd_ulps}
+
+        g = torch.randn(y.shape, generator=gen, device=dev).to(bf16)
+        gf = g.float()
+        mask = [True, True, has_bias]
+
+        def kernel_bwd():
+            return kp._backward(x, w, g, 1, True, True, has_bias)
+
+        def plain_bwd():
+            return conv_bwd(gf, xf, wf, [1] if has_bias else None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1, mask)
+
+        def library_bwd():
+            return conv_bwd(g, x, w, [1] if has_bias else None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1, mask)
+
+        got, ref = kernel_bwd(), plain_bwd()
+        dx_ulps = bf16_ulps(got[0], ref[0], 1e-4 * ref[0].abs().max().item())
+        # the weight and bias gradients, rounded to bf16 once, against f32 sums over every voxel
+        dparam_err = max(((a.float() - r).abs().max() / r.abs().max()).item()
+                         for a, r in zip(got[1:], ref[1:]) if a is not None)
+        same_bits = all(torch.equal(a, c) for a, c in zip(got, kernel_bwd()) if a is not None)
+        t = timed_pair(kernel_bwd, plain_bwd, iters=20, plain_iters=5, kernel="prob_dgrad_kernel",
+                       library_fn=library_bwd)
+        dev_ms = device_ms_per_call(kernel_bwd, 10, ("prob_dgrad_kernel", "prob_wgrad"))
+        bwd_row = {"pass": "backward", "ms": t[0], "plain_ms": t[1], "library_ms": t[2], "device_ms": dev_ms,
+                   **bound(g.numel() * 2 + 2 * x.numel() * 2, 2 * 2 * 216 * voxels, "f32"), "max_ulps": dx_ulps,
+                   "dparam_rel_err": dparam_err, "repeats_bits": same_bits}
+        for row in (fwd_row, bwd_row):
+            log("prob", f"{case} bf16 {'bias' if has_bias else 'no bias'} {row['pass']}: kernels {row['ms']:.4f} ms "
+                        f"(device {fmt_ms(row['device_ms'])}), plain f32 {row['plain_ms']:.4f} ms, cuDNN bf16 "
+                        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); max "
+                        f"{row['max_ulps']:.3f} bf16 ulps against the plain version"
+                        + (f"; dweight, dbias within {dparam_err:.2e} of the largest; two runs "
+                           f"{'equal' if same_bits else 'DIFFER'}" if row["pass"] == "backward" else ""))
+            rows.append({"name": f"prob_conv{'_backward' if row.pop('pass') == 'backward' else ''}", "route": "cuda",
+                         "case": case, "source": "scene_3dreconstruction_mvsnet_tpu_torch/csrc/prob_conv.cu",
+                         "replaces": "none: CostRegNet's prob conv, left to XLA", "shape": f"[{case}] bf16", **row})
+        if not (fwd_ulps <= 1.0 and dx_ulps <= 1.0 and dparam_err <= 2.0 ** -7 and same_bits):
+            failed.append(case)
+        del x, xf, y, want, g, gf, got, ref
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"the prob conv kernels disagree with their plain versions at {failed}")
+
+    counts = launches_of_each_model(gen, PROB_KERNELS)
+    want = {"MVSNet eval": {"prob_conv": 1}, "MVSNet eval, K4": {"prob_conv": 1}, "CasMVSNet request": {"prob_conv": 3},
+            "MVSNet train step": {"prob_conv": 1, "prob_conv_backward": 3}}
+    log("prob", "prob conv kernel launches of one forward: " + "; ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != want:
+        raise AssertionError(f"the prob conv kernels launched {counts}, not {want}")
+    for row in rows:
+        row["launches_per"] = {"prob_conv": "1 per CostRegNet forward (3 per cascade request)",
+                               "prob_conv_backward": "3 per CostRegNet backward (3 per train step)"}[row["name"]]
     return rows
 
 
@@ -3365,6 +3490,7 @@ def main() -> None:
     rows += phase_recipes(repo, gen)  # the five presets through the runner, and the kernels at their shapes
     rows += phase_cascade(gen)  # K1 and K2 per pixel at CasMVSNet's stages 2 and 3, and its forward's launches
     rows += phase_batchnorm(gen)  # the BatchNorm3d + ReLU kernels, and their launches in each model
+    rows += phase_prob(gen)  # CostRegNet's prob conv kernels, and their launches in each model
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "scene_3dreconstruction_mvsnet_tpu"))
     if leaked:

@@ -26,6 +26,10 @@ D with zeros itself, so only its interior planes are the unsplit conv's.
 cascade's regularisers (``models/cas_mvsnet.py``: 32, 16 and 8 input
 channels, ``prob`` without bias), each with the same layers and keys; K4
 takes 32 channels only.
+
+``prob``, the 8 -> 1 conv, runs as the hand-written kernels of
+``ops/kernels/prob_conv.py`` on a CUDA tensor (forward and backward, split
+or not) and as ``F.conv3d`` on a CPU tensor; its parameters are the module's.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.conv0_fused import conv0_bn_relu, fold_bn
+from ..ops.kernels.prob_conv import prob_conv
 from ..parallel.halo import exchange_halos
-from .blocks import ConvBnReLU3D, ConvTransposeBnReLU3D, conv
+from .blocks import ConvBnReLU3D, ConvTransposeBnReLU3D
 
 
 class CostRegNet(nn.Module):
@@ -74,4 +79,4 @@ class CostRegNet(nn.Module):
         x = conv4 + self.conv7(x, sweep)
         x = conv2 + self.conv9(x, sweep)
         x = conv0 + self.conv11(x, sweep)
-        return conv(self.prob, x, sweep).permute(0, 2, 3, 4, 1)
+        return prob_conv(x, self.prob.weight, self.prob.bias, sweep).permute(0, 2, 3, 4, 1)

@@ -148,11 +148,12 @@ def check_cuda_tensor(t: torch.Tensor, name: str, dtypes, ndim: int, device, ali
 LAUNCH_LOG_ENV = "MVSNET_TORCH_LAUNCH_LOG"
 # the names a launch counts under: K1's builds (one depth per plane, the same
 # with the emitted warps, per-pixel depths) and K2's (per plane, per pixel)
-# apart, and BatchNorm's three passes (1 launch an eval forward, 3 a training
-# forward, 3 a backward)
+# apart, BatchNorm's three passes (1 launch an eval forward, 3 a training
+# forward, 3 a backward) and CostRegNet's prob conv (1 launch a forward, up to
+# 3 a backward)
 KERNEL_NAMES = ("sweep_variance", "sweep_variance_emit", "softmax_regression", "paired_grad", "warp_grad",
                 "conv0_fused", "plane_sweep_warp", "sweep_variance_per_pixel", "softmax_regression_per_pixel",
-                "batch_norm_eval", "batch_norm_train", "batch_norm_backward")
+                "batch_norm_eval", "batch_norm_train", "batch_norm_backward", "prob_conv", "prob_conv_backward")
 _LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)  # the registry; only ``launch`` adds to it
 
 

@@ -297,3 +297,22 @@ def test_without_bn_drops_only_the_batchnorm_kernels(smoke):
     kept = smoke.without_bn(counts)
     assert set(kept) == set(KERNEL_NAMES) - set(smoke.BN_KERNELS) and set(smoke.BN_KERNELS) <= set(KERNEL_NAMES)
     assert smoke.without_bn(dict(counts, sweep_variance=0)).keys() == kept.keys() - {"sweep_variance"}
+
+
+def test_prob_shapes_are_the_cells_inputs(smoke):
+    """The prob phase's inputs are the cells' prob inputs: dtu_request's and
+    dtu_train's 8 channels at a quarter of the image with every plane and
+    MVSNet's bias, and casmvs_dtu_request's three stages (the image at 1/4,
+    1/2 and 1/1 with the stages' planes) without one."""
+    import json
+
+    from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    mvs = json.loads((REPO / "mvsbench/configs/mvsnet_dtu.json").read_text())
+    cas = json.loads((REPO / "mvsbench/configs/casmvsnet_dtu.json").read_text())
+    ev, tr, hw = mvs["eval"], mvs["train"], cas["eval"]["img_hw"]
+    want = {((1, 8, ev["numdepth"], ev["img_hw"][0] // 4, ev["img_hw"][1] // 4), True),
+            ((tr["batch"], 8, tr["numdepth"], tr["img_hw"][0] // 4, tr["img_hw"][1] // 4), True)}
+    want |= {((cas["eval"]["batch"], cas["cr_base_chs"][s], cas["ndepths"][s], hw[0] >> (2 - s), hw[1] >> (2 - s)),
+              False) for s in range(3)}
+    assert set(smoke.PROB_SHAPES) == want and set(smoke.PROB_KERNELS) <= set(KERNEL_NAMES)

@@ -82,7 +82,7 @@ def test_a_launch_counts_under_its_own_name_only(fakes, name):
     device's guard, moves its name by its launch count and no other name;
     a reset zeroes it."""
     calls, device = [], torch.device("cuda:0")
-    launches = 3 if name in ("batch_norm_train", "batch_norm_backward") else 1
+    launches = 3 if name in ("batch_norm_train", "batch_norm_backward", "prob_conv_backward") else 1
     kernels.launch(fakes.entry(calls=calls), 7, None, 2.5, device=device, name=name, launches=launches)
     assert calls == [((7, None, 2.5, fakes.STREAM), [device])] and fakes.GUARDED == []
     assert kernels.launch_counts() == dict(dict.fromkeys(kernels.KERNEL_NAMES, 0), **{name: launches})
@@ -121,7 +121,7 @@ def test_no_wrapper_keeps_its_own_launch_code():
     stream, takes the device guard or decodes an error code itself: each
     launches through ``kernels.launch``."""
     wrappers = sorted(p for p in KERNELS_DIR.glob("*.py") if p.name != "__init__.py")
-    assert len(wrappers) == 7
+    assert len(wrappers) == 8
     for path in wrappers:
         source = path.read_text()
         tree = ast.parse(source)
