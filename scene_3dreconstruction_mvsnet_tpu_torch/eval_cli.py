@@ -35,7 +35,7 @@ import torch
 
 from .eval.depth_gen import save_depth
 from .eval.fusion import filter_depth
-from .models import MVSNet
+from .models import MVSNet, require_model
 from .parallel import local_devices
 from .train.checkpoint import load_model
 from .utils import print_args
@@ -78,7 +78,8 @@ class _Refuse(argparse.Action):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Predict depth, filter, and fuse (MVSNet, PyTorch/CUDA port)")
-    p.add_argument("--model", default="mvsnet")
+    p.add_argument("--model", default="mvsnet", help="select model (models.require_model; MVSNet is the one with "
+                   "an eval path)")
     p.add_argument("--dataset", default="dataloader_eval", choices=["dtu_yao_eval", "blender_eval", "dataloader_eval"])
     p.add_argument("--dataset_name", default="dtu", choices=list(DICT_IMG_RES))
     p.add_argument("--testpath", help="testing data path")
@@ -194,6 +195,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = parser.parse_args(argv)
     print("argv:", sys.argv[1:] if argv is None else argv)
     print_args(args)
+    model_def = require_model(args.model, "eval")
     if args.pallas_conv0 and args.dtype != "bfloat16":
         parser.error("--pallas_conv0 requires --dtype bfloat16")
     if args.testpath is None:
@@ -212,7 +214,7 @@ def main(argv: list[str] | None = None) -> dict:
         if args.batch_size % args.data_shards:
             parser.error(f"--batch_size {args.batch_size} must be a multiple of --data_shards {args.data_shards}")
 
-    model = MVSNet(depth_chunk=args.depth_chunk, dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
+    model = model_def(depth_chunk=args.depth_chunk, dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
                    fused_conv0=args.pallas_conv0)
     acquisition_folder = args.testpath.rstrip("/").split("/")[-1]
     outdir_acq = os.path.join(args.outdir, acquisition_folder)

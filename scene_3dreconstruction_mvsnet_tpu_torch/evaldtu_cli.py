@@ -40,13 +40,14 @@ from .eval.filtering import fuse_reference_view
 from .eval_cli import load_weights
 from .infer import make_infer_step
 from .io import read_camera_parameters, read_img, read_pair_file, read_pfm, save_mask, save_pfm, write_ply
-from .models import MVSNet
+from .models import MVSNet, require_model
 from .utils import print_args
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Legacy DTU depth fusion (MVSNet, PyTorch/CUDA port)")
-    p.add_argument("--model", default="mvsnet")
+    p.add_argument("--model", default="mvsnet", help="select model (models.require_model; MVSNet is the one with "
+                   "an eval path)")
     p.add_argument("--dataset", default="dtu_yao_eval", choices=["dtu_yao_eval", "blender_eval"])
     p.add_argument("--testpath", help="testing data path")
     p.add_argument("--testlist", help="testing scan list")
@@ -194,6 +195,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     print("argv:", sys.argv[1:] if argv is None else argv)
     print_args(args)
+    model_def = require_model(args.model, "eval")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -203,7 +205,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     # the plain sweep's depth chunk at the legacy resolution bounds its memory
     # on the CPU (the sweep kernel ignores it)
-    model = MVSNet(depth_chunk=auto_depth_chunk((1200, 1600), args.numdepth))
+    model = model_def(depth_chunk=auto_depth_chunk((1200, 1600), args.numdepth))
     out: dict = {}
     t0 = time.time()
     if not args.skip_gen:

@@ -17,8 +17,9 @@ def make_infer_step(model: nn.Module, device: torch.device | str) -> Callable[..
     that device. ``model`` is any model called as MVSNet is, ``model(imgs
     [B, V, H, W, 3], proj_matrices [B, V, 4, 4], depth_values [B, D])``,
     that returns at least ``depth`` and ``photometric_confidence``: the
-    port's ``MVSNet`` or ``CasMVSNet`` (whose dict also holds each stage's
-    maps).
+    port's ``MVSNet``, ``CasMVSNet`` (whose dict also holds each stage's
+    maps) or ``RMVSNet`` (winner-take-all depth and its probability, at 1/4
+    resolution as MVSNet's).
 
     u8 images are copied as u8 and divided by 255 on the device (exact for
     loaders that emit u8/255 images, and a quarter of the f32 copy). Each

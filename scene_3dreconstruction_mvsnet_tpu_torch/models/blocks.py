@@ -1,4 +1,5 @@
-"""Conv/BN building blocks of MVSNet (2D and 3D), NCHW / NCDHW inside.
+"""Conv/BN building blocks of MVSNet (2D and 3D), NCHW / NCDHW inside, and
+R-MVSNet's convolutional GRU cell (``ConvGRUCell``).
 
 Counterpart of the non-flat blocks of
 ``scene_3dreconstruction_mvsnet_tpu/models/blocks.py``. Module names follow
@@ -279,6 +280,33 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(self.conv1(x))
         return out + (x if self.downsample is None else self.downsample(x))
+
+
+class ConvGRUCell(nn.Module):
+    """Convolutional GRU cell of R-MVSNet (Yao et al. 2019, §3.3) on
+    [B, C, H, W] maps, 3x3 kernels with padding 1:
+
+      R = sigmoid(W_r * [x, h] + b_r),  U = sigmoid(W_u * [x, h] + b_u)
+      H~ = tanh(W_c * [x, R . h] + b_c)
+      h' = (1 - U) . h + U . H~
+
+    ``gates`` is one conv with 2 ``hidden`` outputs (R the first ``hidden``
+    channels, U the rest), ``candidate`` one conv with ``hidden`` outputs.
+    The convs compute in the dtype of ``x`` (the state cast to it as their
+    input, weights cast per conv); the gates' arithmetic and the returned
+    state are in the dtype of ``h`` (f32 on every path, f64 in a test)."""
+
+    def __init__(self, in_channels: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.gates = nn.Conv2d(in_channels + hidden, 2 * hidden, 3, 1, 1, bias=True)
+        self.candidate = nn.Conv2d(in_channels + hidden, hidden, 3, 1, 1, bias=True)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        ru = torch.sigmoid(conv(self.gates, torch.cat([x, h.to(x.dtype)], 1)).to(h.dtype))
+        r, u = ru[:, : self.hidden], ru[:, self.hidden :]
+        c = torch.tanh(conv(self.candidate, torch.cat([x, (r * h).to(x.dtype)], 1)).to(h.dtype))
+        return (1 - u) * h + u * c
 
 
 class Hourglass3d(nn.Module):

@@ -53,7 +53,7 @@ Departures from the public code, none of which changes the equations:
   (``conv7.0``/``conv7.1``, the public code's ``conv7.conv``/``conv7.bn``):
   a published checkpoint needs that key map;
 - a forward in training mode with gradients on raises: the cascade has no
-  training path yet (ROADMAP.md, Queue 1: cascade training).
+  training path yet (``missing_paths``).
 
 Spans (``utils/tracing.py``): ``casmvsnet.fpn``; ``casmvsnet.stage{s}``, the
 whole stage; inside it ``casmvsnet.sweep{s}`` (K1), ``casmvsnet.costreg{s}``
@@ -122,6 +122,10 @@ class CasMVSNet(nn.Module):
         interval (stage 1's is not used: its planes span the whole range).
     """
 
+    # the ROADMAP.md item that plans each path this model lacks
+    missing_paths = {"train": "ROADMAP.md, Queue 4 item 2: cascade training",
+                     "eval": "ROADMAP.md, Queue 4 item 1: eval_cli --model casmvsnet"}
+
     def __init__(self, dtype: torch.dtype | None = None, ndepths=(48, 32, 8), depth_interval_ratio=(4, 2, 1)):
         super().__init__()
         if len(ndepths) != 3 or len(depth_interval_ratio) != 3:
@@ -137,8 +141,8 @@ class CasMVSNet(nn.Module):
                 depth_values: torch.Tensor) -> dict[str, torch.Tensor | dict[str, torch.Tensor]]:
         if self.training and torch.is_grad_enabled():
             raise NotImplementedError("CasMVSNet has no training path yet: per-pixel K1-emit and K3, the "
-                                      "three-stage loss and multi-scale ground truth (ROADMAP.md, Queue 1: "
-                                      "cascade training)")
+                                      "three-stage loss and multi-scale ground truth "
+                                      f"({self.missing_paths['train']})")
         B, V, H, W, C = imgs.shape
         if proj_matrices.shape[1] != V:
             raise ValueError(f"got {V} images but {proj_matrices.shape[1]} projection matrices")

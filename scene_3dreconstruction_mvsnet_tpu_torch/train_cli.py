@@ -50,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MVSNet trainer, PyTorch/CUDA port")
     p.add_argument("--mode", default="train", choices=["train", "test", "profile"],
                    help="profile: trace eval steps with torch.profiler into <logdir>/profile/trace.json")
-    p.add_argument("--model", default="mvsnet", help="select model (models.find_model_def; MVSNet is the one that trains)")
+    p.add_argument("--model", default="mvsnet", help="select model (models.require_model; MVSNet is the one that trains)")
     p.add_argument("--refine", action="store_true", help="use the refine network")
     p.add_argument("--dataset", default="dtu_yao", choices=["dtu_yao", "blender"])
     p.add_argument("--trainpath", default="", help="train datapath")
@@ -137,13 +137,10 @@ def main(argv: list[str] | None = None) -> None:
     print_args(args)
 
     from .data import find_dataset_def
-    from .models import find_model_def
+    from .models import require_model
     from .train.loop import Trainer
 
-    model_def = find_model_def(args.model)
-    if args.model != "mvsnet":
-        raise NotImplementedError(f"--model {args.model} has no training path yet (ROADMAP.md, Queue 1: "
-                                  "cascade training)")
+    model_def = require_model(args.model, "train")
     MVSDataset = find_dataset_def(args.dataset)
     common = dict(Nlights=args.Nlights, pairfile=args.pairfile, seed=seed, img_cache=args.img_cache)
     train_dataset = MVSDataset(args.trainpath, args.trainlist, "train", args.NtrainViews,

@@ -49,6 +49,12 @@ The spans, each opened where its work is done:
   casmvsnet.sweep{s} the stage's K1 call (per-pixel planes from stage 2 on)
   casmvsnet.costreg{s}  the stage's CostRegNet
   casmvsnet.regress{s}  the stage's K2 call
+  rmvsnet.features   ``models/rmvsnet.py::RMVSNet``'s FeatureNet call
+  rmvsnet.recurrence its recurrent regulariser over every plane: the K1
+                     chunks, the 32 -> 16 conv, the three GRU cells and the
+                     logit conv a plane
+  rmvsnet.sweep      inside it, each chunk's K1 call (``PLANE_CHUNK`` planes)
+  rmvsnet.regress    the winner-take-all pass over the logit maps
 """
 
 from __future__ import annotations

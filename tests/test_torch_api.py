@@ -53,8 +53,9 @@ MODULE_MAP = {"ops/pallas/": "ops/kernels/", "interop/torch_import.py": "interop
 
 _PLANNER = ("the TPU kernels' window planner: Mosaic's gather reaches within 128 lanes, a GPU thread loads from "
             "any address (ROADMAP 'Don't port')")
-_TPU_LAYOUT = ("TPU layout; ROADMAP Queue 1 item 3 takes the transpose's parity split if an H100 measurement asks "
-               "for it")
+_TPU_LAYOUT = ("TPU layout (flat and decomposed convs); the port runs cuDNN's convs and the transposed conv by "
+               "output parity (models/blocks.py), and ROADMAP Queue 2 brings the flat layouts back only if an H100 "
+               "measurement asks for them")
 
 # "<JAX module path>::<name>" (or a whole module's path) -> the port's counterpart as "<port module>:<name>",
 # which must exist, or a one-line reason it has none
@@ -553,16 +554,18 @@ def test_dict_average_meter_matches_jax():
 
 def test_find_model_def():
     """The registry: 'mvsnet' is MVSNet, and the port also has 'casmvsnet'
-    (CasMVSNet, inference only, which the JAX package lacks); another name
-    raises JAX's KeyError text with the port's list of names, also through
-    train_cli's --model, which trains MVSNet only."""
+    and 'rmvsnet' (CasMVSNet and R-MVSNet, inference only, which the JAX
+    package lacks); another name raises JAX's KeyError text with the port's
+    list of names, also through train_cli's --model, which trains MVSNet
+    only."""
     assert tmodels.find_model_def("mvsnet") is tmodels.MVSNet
     assert tmodels.find_model_def("casmvsnet") is tmodels.CasMVSNet
+    assert tmodels.find_model_def("rmvsnet") is tmodels.RMVSNet
     with pytest.raises(KeyError) as want:
         jmodels.find_model_def("nomodel")
     with pytest.raises(KeyError) as got:
         tmodels.find_model_def("nomodel")
-    assert str(got.value) == str(want.value).replace("['mvsnet']", "['casmvsnet', 'mvsnet']")
+    assert str(got.value) == str(want.value).replace("['mvsnet']", "['casmvsnet', 'mvsnet', 'rmvsnet']")
     with pytest.raises(KeyError) as cli:
         train_cli.main(["--model", "nomodel", "--device", "cpu"])
     assert str(cli.value) == str(got.value)

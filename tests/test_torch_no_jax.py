@@ -51,6 +51,13 @@ assert out["depth"].shape == (1, 8, 8) and out["photometric_confidence"].shape =
 assert torch.isfinite(out["depth"]).all() and torch.isfinite(out["photometric_confidence"]).all()
 assert ((out["depth"] >= 40.0 - 1e-3) & (out["depth"] <= 60.0 + 1e-3)).all()
 
+# R-MVSNet's recurrence over the 8 planes, K1 in chunks, on the same request
+from scene_3dreconstruction_mvsnet_tpu_torch.models import RMVSNet
+assert "scene_3dreconstruction_mvsnet_tpu_torch.models.rmvsnet" in sys.modules
+rmvs = make_infer_step(random_init_(RMVSNet(), gen), "cpu")(imgs, projs[None], dv)
+assert rmvs["depth"].shape == (1, 8, 8) and torch.isin(rmvs["depth"], dv[0]).all()
+assert ((rmvs["photometric_confidence"] > 1 / 8) & (rmvs["photometric_confidence"] <= 1)).all()
+
 # the sweep split's code path at one rank (its halos zeros, its gather the identity)
 from scene_3dreconstruction_mvsnet_tpu_torch.parallel import VolumeSharding
 split = MVSNet(volume_sharding=VolumeSharding(None, 1, 0))
@@ -117,7 +124,8 @@ print("imported", len(names), "modules")
 
 def test_port_imports_and_runs_without_jax(tmp_path):
     """Every module of the port imports with the JAX package blocked; one
-    request is served (also through the sweep split's path at one rank), one
+    request is served (also by R-MVSNet, and through the sweep split's path
+    at one rank), one
     training step taken, a DTU tree and an eval tree written by the port's
     synthetic module, one epoch trained by train_cli and the 3-view scan
     evaluated by eval_cli, on the CPU."""
