@@ -3114,7 +3114,8 @@ def launches_of_each_model(gen, names: tuple[str, ...]) -> dict[str, dict[str, i
 
 def phase_batchnorm(gen) -> list[dict]:
     """The BatchNorm3d + ReLU kernels (``ops/kernels/batch_norm.py``) at the
-    cells' full-resolution volumes (BN_SHAPES, bf16): the eval forward, the
+    cells' full-resolution volumes (BN_SHAPES, bf16, laid out NDHWC as
+    CostRegNet holds them): the eval forward, the
     training forward (statistics and transform) and the backward, each held
     to the plain version (F.batch_norm with flax's running variance, then
     F.relu, and autograd through both) and timed beside it and beside
@@ -3137,10 +3138,11 @@ def phase_batchnorm(gen) -> list[dict]:
     bf16 = torch.bfloat16
     names = ("bn_transform_kernel", "bn_stats_", "bn_backward_")
     rows, failed = [], []
+    ndhwc = torch.channels_last_3d  # CostRegNet's layout, the kernels' only one
     for shape in BN_SHAPES:
         bn = random_init_(BatchNorm3d(shape[1]).to(dev), gen)
-        x = (torch.randn(shape, generator=gen, device=dev) * 1.7 + 0.4).to(bf16)
-        dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.7 + 0.4).to(bf16, memory_format=ndhwc)
+        dy = torch.randn(shape, generator=gen, device=dev).to(bf16, memory_format=ndhwc)
         vol = x.numel() * x.element_size()
         rm, rv, w, b = bn.running_mean, bn.running_var, bn.weight.detach(), bn.bias.detach()
         case = "x".join(map(str, shape))
@@ -3184,7 +3186,7 @@ def phase_batchnorm(gen) -> list[dict]:
             return torch.autograd.grad(plain_y, (xg, wg, bg), dy, retain_graph=True)
 
         _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(x, w, b, None, None, True, 0.1, bn.eps)[:3]
-        gm = (dy * mask).contiguous()
+        gm = (dy * mask).contiguous(memory_format=ndhwc)
 
         def library_bwd():
             return torch.ops.aten.native_batch_norm_backward(gm, x, w, None, None, save_mean, save_invstd, True,
@@ -3247,7 +3249,7 @@ def phase_batchnorm(gen) -> list[dict]:
 
 def phase_prob(gen) -> list[dict]:
     """CostRegNet's prob conv kernels (``ops/kernels/prob_conv.py``) at the
-    cells' inputs (PROB_SHAPES, bf16): the forward and the backward, each
+    cells' inputs (PROB_SHAPES, bf16, NDHWC): the forward and the backward, each
     held to the plain version (F.conv3d in f32 of the same inputs, TF32 off,
     and ``aten.convolution_backward`` of it) and timed beside it and beside
     cuDNN's bf16 conv and its backward (``library_ms``, what the port ran
@@ -3265,7 +3267,7 @@ def phase_prob(gen) -> list[dict]:
     conv_bwd = torch.ops.aten.convolution_backward
     rows, failed = [], []
     for shape, has_bias in PROB_SHAPES:
-        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        x = torch.randn(shape, generator=gen, device=dev).to(bf16, memory_format=torch.channels_last_3d)
         w = (torch.randn((1, 8, 3, 3, 3), generator=gen, device=dev) * 0.2).to(bf16)
         b = (torch.randn((1,), generator=gen, device=dev) * 0.1).to(bf16) if has_bias else None
         xf, wf, bf = x.float(), w.float(), None if b is None else b.float()

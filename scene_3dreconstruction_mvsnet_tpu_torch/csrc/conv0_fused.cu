@@ -5,10 +5,10 @@
 // Replaces the TPU kernel scene_3dreconstruction_mvsnet_tpu/ops/pallas/
 // conv0_fused.py::conv0_bn_relu_fused (body _kernel). It reads the
 // channels-last bf16 cost volume [B, D, H, W, 32] that the sweep-variance
-// kernel writes and writes conv0's activation [B, 8, D, H, W] in bf16, the
-// layout conv1 and the decoder's last skip take, so the cost volume is never
-// permuted to NCDHW and the conv result never round-trips to device memory
-// before BatchNorm and ReLU.
+// kernel writes and writes conv0's activation channels-last too, [B, D, H, W,
+// 8] in bf16 (NDHWC, the layout CostRegNet's conv1 and its decoder's last skip
+// take), so the cost volume is never permuted and the conv result never
+// round-trips to device memory before BatchNorm and ReLU.
 //
 // Bound on this card, counted from the shapes: at the inference headline
 // ([1, 192, 216, 288, 32]) the kernel must read 764 MB and write 191 MB
@@ -38,8 +38,8 @@
 // (13.8 KB, one 8-byte load per lane and k-step). Epilogue: the folded
 // BatchNorm as one multiply and one add, each rounded as the plain version
 // rounds them, ReLU (NaN stays NaN, as torch.relu), one bf16 rounding, then a
-// transpose through shared memory into 16-byte stores along x of each output
-// channel. The products are exact in f32; only the order of the f32 sums
+// pass through shared memory that gathers each voxel's 8 channels, stored as
+// one 16-byte store a voxel. The products are exact in f32; only the order of the f32 sums
 // differs from the plain version's. The TPU kernel's band-Toeplitz weights,
 // wide lane packing and D-streaming carry buffers answer the MXU's
 // 128 x 128 tiles and its sequential grid; none of them is ported.
@@ -98,9 +98,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 struct Conv0 {
   const __nv_bfloat16* xb;  // this sample's [D, H, W, 32]
-  __nv_bfloat16* out;       // [B, 8, D, H, W]
+  __nv_bfloat16* out;       // [B, D, H, W, 8]
   const uint2* w_s;         // [27 taps][2 halves][32 lanes] B fragments
-  __nv_bfloat16* stage;     // this warp's [8][32] epilogue tile
+  __nv_bfloat16* stage;     // this warp's [32][8] epilogue tile: the row's voxels
   uint32_t ring;            // shared address of slot 0
   int b, D, H, W, ty0, tx0, d0, d1, warp, lane;
   float scale[2], bias[2];  // of output channels 2 (lane % 4) and + 1
@@ -169,21 +169,15 @@ struct Conv0 {
         const int x = mt * 16 + (lane >> 2) + (i >> 1) * 8;
         float v = __fadd_rn(__fmul_rn(acc[mt][i], scale[j]), bias[j]);
         v = v < 0.0f ? 0.0f : v;
-        stage[((lane & 3) * 2 + j) * kTileW + x] = __float2bfloat16_rn(v);
+        stage[x * kCo + (lane & 3) * 2 + j] = __float2bfloat16_rn(v);
         acc[mt][i] = 0.0f;
       }
     }
     __syncwarp();
-    const int co = lane >> 2, g = lane & 3;
-    const int y = ty0 + warp, x = tx0 + g * 8;
-    if (y < H) {
-      __nv_bfloat16* dst = out + (((static_cast<int64_t>(b) * kCo + co) * D + q) * H + y) * W + x;
-      const __nv_bfloat16* src = stage + co * kTileW + g * 8;
-      if ((W & 7) == 0 && x + 8 <= W) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int i = 0; i < 8 && x + i < W; ++i) dst[i] = src[i];
-      }
+    const int y = ty0 + warp, x = tx0 + lane;  // lane x stores voxel x's 8 channels, one 16-byte store
+    if (y < H && x < W) {
+      __nv_bfloat16* dst = out + (((static_cast<int64_t>(b) * D + q) * H + y) * W + x) * kCo;
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(stage + lane * kCo);
     }
     __syncwarp();
   }
@@ -207,7 +201,7 @@ struct Conv0 {
 
 // x [B, D, H, W, 32] bf16, weight: [27 taps][2 halves][32 lanes] mma B
 // fragments (uint2 of 4 bf16; tap = (kd * 3 + kh) * 3 + kw), scale/bias [8]
-// f32 (folded BatchNorm) -> out [B, 8, D, H, W] bf16. blockIdx.x: (b, tile y,
+// f32 (folded BatchNorm) -> out [B, D, H, W, 8] bf16. blockIdx.x: (b, tile y,
 // tile x); blockIdx.y: chunk of d_chunk output planes.
 __global__ void __launch_bounds__(kThreads, 2)
 conv0_fused_kernel(const __nv_bfloat16* __restrict__ x, const uint2* __restrict__ weight,

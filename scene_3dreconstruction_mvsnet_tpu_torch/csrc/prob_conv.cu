@@ -1,6 +1,6 @@
 // CostRegNet's last conv, `prob` (3x3x3, 8 -> 1 channel, stride 1, padding 1 on
 // H and W), for Hopper (sm_90a): the forward, the input gradient (dgrad) and the
-// weight and bias gradient (wgrad).
+// weight and bias gradient (wgrad), on NDHWC volumes.
 //
 // Replaces no TPU kernel: the JAX package left this conv to XLA. It is added
 // because cuDNN runs it, with its one output channel, on an f32 NCHW engine
@@ -14,34 +14,43 @@
 // (67 TFLOP/s); the operations bound it by a little. The dgrad (one value in,
 // 8 out) and the wgrad (216 + 1 sums over every voxel) do the same work.
 //
+// Layout: x and gx are [B, D, H, W, 8] (CostRegNet's NDHWC activation), y and
+// g [B, D, H, W]. A voxel's 8 channels are 16 bytes in bf16 (32 in f32).
+//
 // Design: CUDA-core FMAs, f32 in registers, each output rounded once; f32 runs
 // in f32 (no TF32), so the arithmetic is the plain conv's and only the order of
-// the f32 sums differs. Each kernel's block owns a tile of 32 columns and 16
-// (forward, one warp), 32 (dgrad, 4 warps) or 8 rows (wgrad, 4 warps) of a
-// sample's H x W plane and a chunk of D (the wrapper's launch plan, about two
-// waves of warps on the card), and streams the (plane, channel) slices it needs
-// through a ring of shared-memory slots, each the tile with a one-voxel halo as
-// raw input values, filled by 16-byte cp.async whose zero fill is the conv's
-// padding (one value at a time where the rows are not 16-byte aligned). A
-// thread owns 4 consecutive columns of 2 or 4 rows and reads its window of a
-// slice (the rows and columns around them) into registers once for all the
-// taps that use it; the rows' pitch puts the 4 thread rows of a warp on
-// different banks. One-warp forward blocks leave few idle warps at a ragged
-// edge (H = 144, W = 200). The weights sit in shared memory as f32.
-//  - forward: each input slice is multiplied once by the three kd slices of
-//    its channel's weights into three rolling accumulators (output planes
-//    p + 1, p, p - 1); after input plane p, output plane p - 1 is complete,
-//    gets the bias and is stored. Window reuse is 27 FMAs per value read.
+// the f32 sums differs. A block owns a tile of 32 columns of a sample's H x W
+// plane and a chunk of D (the wrapper's launch plan, about two waves of warps
+// on the card): the forward 8 warps over 16 rows, the dgrad 4 over 4, the
+// wgrad 4 over 8; a warp owns 8 columns of kNH rows, its lanes 4 to a column,
+// lane p of a column the channel pair 2p, 2p + 1. The planes the block needs
+// stream through a ring of shared-memory slots, each the tile with a one-voxel
+// halo as raw input values, filled by 16-byte cp.async whose zero fill is the
+// conv's padding: a voxel's 8 channels one copy (two in f32), a single-channel
+// plane 16 bytes of a row a copy (one value at a time where the rows or the
+// volumes are not 16-byte aligned). A lane reads its channel pair of a voxel
+// as one 4-byte word (8 in f32): the warp's 8 neighbouring voxels are 32
+// neighbouring words, one wavefront. A lane's 54 weights (its pair's 27 taps)
+// stay in registers, so every value read feeds 9 or 18 FMAs from registers.
+// The D loops carry no branch per plane: a chunk's first and last planes also
+// feed accumulators of planes outside the chunk, which are never stored (the
+// forward, the dgrad) or meet zero gradients (the wgrad).
+//  - forward: input plane p is multiplied by the three kd slices of the taps
+//    into three rolling accumulators (output planes p, p - 1, p - 2 of the
+//    chunk); after input plane p, output plane p - 2 is complete, the 4 lanes
+//    of a column add their pairs' sums (a fixed butterfly), the bias is added
+//    and one lane stores each row.
 //  - dgrad: the forward's stencil transposed, a correlation of the gradient
-//    with the taps flipped and D padded by 2 - pad_d: one output plane at a
-//    time from a ring of gradient planes, all 8 channels in registers.
-//  - wgrad: each warp takes two input channels over the same tile: the
-//    gradient planes roll through registers as in the forward, and each
-//    thread keeps its channels' 27 sums; warp 0 also sums the gradient for
-//    the bias. Each
-//    block writes its sums to scratch, and a second launch adds the blocks'
-//    entries in a fixed order in f64 (no float atomics), so the result repeats
-//    its bits from run to run.
+//    with the taps flipped and D padded by 2 - pad_d, the same rolling
+//    accumulators over the gradient's planes; the 4 lanes of a column trade
+//    words so each stores whole voxels: 8 channels one 16-byte store (two in
+//    f32).
+//  - wgrad: each lane keeps its pair's 27 sums; the gradient planes roll
+//    through registers as the forward's accumulators do, and the lanes of
+//    pair 0 also sum the gradient for the bias. The block adds its lanes' sums
+//    in a fixed order and writes them to scratch, and a second launch adds the
+//    blocks' entries in a fixed order in f64 (no float atomics), so the result
+//    repeats its bits from run to run.
 // A pad_d of 1 is the conv's zero padding on D; 0 is the sweep split's input,
 // whose first and last planes are the neighbours' (D + 2 planes in, D out).
 
@@ -52,21 +61,17 @@
 
 namespace {
 
-constexpr int kCin = 8;                 // prob's input channels
-constexpr int kWeights = kCin * 27;     // 216
-constexpr int kSums = kWeights + 1;     // the wgrad's sums: the weights', then the bias'
-constexpr int kTileW = 32;              // output columns of every kernel's tile
-constexpr int kNW = 4;                  // consecutive columns a thread owns
-constexpr int kTX = kTileW / kNW;       // threads across the tile: 8
-constexpr int kTY = 32 / kTX;           // thread rows a warp: 4
-constexpr int kWeightBytes = kCin * 3 * 12 * 4;  // f32 [8][3][12]: 9 taps padded to 12 per (channel, kd)
-
-// forward: one warp a block, 4 rows a thread
-constexpr int kFwdWarps = 1, kFwdNH = 4, kFwdRows = kFwdWarps * kTY * kFwdNH, kFwdStages = 4;
-// dgrad: 4 warps stacked in H, 2 rows a thread, 8 channels each
-constexpr int kDgWarps = 4, kDgNH = 2, kDgRows = kDgWarps * kTY * kDgNH, kDgStages = 6;
-// wgrad: 4 warps over one tile, 2 input channels each, 2 rows a thread
-constexpr int kWgWarps = 4, kWgChannels = kCin / kWgWarps, kWgNH = 2, kWgRows = kTY * kWgNH, kWgStages = 3;
+constexpr int kCin = 8;              // prob's input channels
+constexpr int kWeights = kCin * 27;  // 216
+constexpr int kSums = kWeights + 1;  // the wgrad's sums: the weights', then the bias'
+constexpr int kPairs = kCin / 2;     // lanes of a column, one channel pair each
+constexpr int kCols = 32 / kPairs;   // columns of a warp: 8
+constexpr int kWarpsW = 4;               // warps across a tile
+constexpr int kTileW = kCols * kWarpsW;  // output columns of every kernel's tile: 32
+// forward: 2 x 4 warps, 8 rows a thread; dgrad and wgrad: 1 x 4 warps, 4 and 8 rows a thread
+constexpr int kFwdWarps = 8, kFwdNH = 8, kFwdRows = kFwdNH * kFwdWarps / kWarpsW, kFwdStages = 4;
+constexpr int kDgWarps = 4, kDgNH = 4, kDgRows = kDgNH * kDgWarps / kWarpsW, kDgStages = 6;
+constexpr int kWgWarps = 4, kWgNH = 8, kWgRows = kWgNH * kWgWarps / kWarpsW, kWgStages = 3;
 constexpr int kFinalThreads = 256;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -82,25 +87,25 @@ __device__ __forceinline__ void from_f64(double v, __nv_bfloat16& out) {
   out = __float2bfloat16_rn(f);
 }
 
-// Words of a slice row: at least `bytes`, a multiple of 16 bytes, and such
-// that nh rows (one warp's next thread row) fall 16 banks further on.
-constexpr int pitch_words(int bytes, int nh) {
-  int w = (bytes + 15) / 16 * 4;
-  while (nh * w % 32 != 16) w += 4;
-  return w;
-}
+// A plane of voxels over a tile of kRows x kTileW outputs with a one-voxel
+// halo: rows h0 - 1 .. h0 + kRows, columns w0 - 1 .. w0 + kTileW, kChannels raw
+// T a voxel.
+template <typename T, int kRows, int kChannels>
+struct Plane {
+  static constexpr int kHaloRows = kRows + 2;
+  static constexpr int kVoxels = kTileW + 2;  // a row's
+  static constexpr int kElems = kHaloRows * kVoxels * kChannels;
+  static constexpr int kBytes = (kElems * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+};
 
-// A slice: one (plane, channel) of the input over a tile of kRows x kTileW
-// outputs with a one-voxel halo, rows h0 - 1 .. h0 + kRows and columns
-// w0 - kLead .. w0 + kTileW + kLead - 1 (one 16-byte chunk each side) as raw
-// T, kPitch elements a row; column w0 sits kLead elements into its row.
-template <typename T, int kRows, int kNH>
+// A single-channel plane over the same halo tile, its columns led by one
+// 16-byte chunk on each side so that column w0 (a multiple of 32) starts a
+// chunk: columns w0 - kLead .. w0 + kTileW + kLead - 1, column w0 at kLead.
+template <typename T, int kRows>
 struct Slice {
   static constexpr int kLead = 16 / static_cast<int>(sizeof(T));
   static constexpr int kHaloRows = kRows + 2;
-  static constexpr int kCopyCols = kTileW + 2 * kLead;
-  static constexpr int kPitch = pitch_words(kCopyCols * static_cast<int>(sizeof(T)), kNH) * 4 /
-                                static_cast<int>(sizeof(T));
+  static constexpr int kPitch = kTileW + 2 * kLead;
   static constexpr int kElems = kHaloRows * kPitch;
   static constexpr int kBytes = kElems * static_cast<int>(sizeof(T));
 };
@@ -117,364 +122,433 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Start the copy of `plane` (a sample's channel's H x W values; null where the
-// plane is D's padding) over the tile at (h0, w0) into the slice at dst: 16
-// bytes a copy where the rows are 16-byte aligned (W a multiple of kLead and
-// the tensor aligned, so a chunk lies wholly inside the plane or outside),
-// else one value at a time. `any` is a valid, aligned address for the copies
-// that read nothing.
-template <typename T, bool kAligned, class S>
+// Start the copy of `plane` (a sample's H x W voxels of kCin channels; null
+// where the plane is D's padding) over the tile at (h0, w0) into dst: 16 bytes
+// a copy where the volume is 16-byte aligned (a voxel is one or two copies),
+// else one value at a time, by the block's kBlock threads. `any` is a valid,
+// aligned address for the copies that read nothing.
+template <typename T, bool kAligned, class P, int kBlock>
+__device__ __forceinline__ void fill_plane(T* dst, const T* __restrict__ plane, const T* any, int h0, int w0, int H,
+                                           int W) {
+  constexpr int kPerCopy = kAligned ? 16 / static_cast<int>(sizeof(T)) : 1;  // values a copy
+  constexpr int kCopies = kCin / kPerCopy;                                   // copies a voxel
+  for (int i = threadIdx.x; i < P::kHaloRows * P::kVoxels * kCopies; i += kBlock) {
+    const int v = i / kCopies, k = i - v * kCopies, r = v / P::kVoxels;
+    const int h = h0 - 1 + r, w = w0 - 1 + (v - r * P::kVoxels);
+    const bool ok = plane != nullptr && h >= 0 && h < H && w >= 0 && w < W;
+    const int64_t src = (static_cast<int64_t>(h) * W + w) * kCin + k * kPerCopy;
+    if constexpr (kAligned) {
+      cp_async16(dst + i * kPerCopy, ok ? plane + src : any, ok);
+    } else {
+      dst[i] = ok ? plane[src] : T(0.0f);
+    }
+  }
+}
+
+// The same for a single-channel plane into a Slice: 16 bytes a copy where the
+// rows are 16-byte aligned (W a multiple of kLead and the tensor aligned, so a
+// chunk lies wholly inside the plane or outside), else one value at a time.
+template <typename T, bool kAligned, class S, int kBlock>
 __device__ __forceinline__ void fill_slice(T* dst, const T* __restrict__ plane, const T* any, int h0, int w0, int H,
                                            int W) {
   if constexpr (kAligned) {
-    constexpr int kChunks = S::kCopyCols / S::kLead;
-    for (int i = threadIdx.x; i < S::kHaloRows * kChunks; i += blockDim.x) {
+    constexpr int kChunks = S::kPitch / S::kLead;
+    for (int i = threadIdx.x; i < S::kHaloRows * kChunks; i += kBlock) {
       const int r = i / kChunks, k = i - r * kChunks;
       const int h = h0 - 1 + r, w = w0 - S::kLead + k * S::kLead;
       const bool ok = plane != nullptr && h >= 0 && h < H && w >= 0 && w < W;
       cp_async16(dst + r * S::kPitch + k * S::kLead, ok ? plane + static_cast<int64_t>(h) * W + w : any, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < S::kHaloRows * S::kCopyCols; i += blockDim.x) {
-      const int r = i / S::kCopyCols, k = i - r * S::kCopyCols;
+    for (int i = threadIdx.x; i < S::kElems; i += kBlock) {
+      const int r = i / S::kPitch, k = i - r * S::kPitch;
       const int h = h0 - 1 + r, w = w0 - S::kLead + k;
       const bool ok = plane != nullptr && h >= 0 && h < H && w >= 0 && w < W;
-      dst[r * S::kPitch + k] = ok ? plane[static_cast<int64_t>(h) * W + w] : T(0.0f);
+      dst[i] = ok ? plane[static_cast<int64_t>(h) * W + w] : T(0.0f);
     }
   }
 }
 
-// Columns c0 - 1 .. c0 + 4 of a slice row (`row` at the tile's first column)
-// as f32: one 16-byte or 8-byte load for the thread's own 4 columns, one load
-// for each neighbour.
-__device__ __forceinline__ void load_row(const float* row, int c0, float (&v)[6]) {
-  const float4 m = *reinterpret_cast<const float4*>(row + c0);
-  v[0] = row[c0 - 1];
-  v[1] = m.x;
-  v[2] = m.y;
-  v[3] = m.z;
-  v[4] = m.w;
-  v[5] = row[c0 + 4];
+// Channels 2p and 2p + 1 of the voxel at (halo row r, halo column c) of a
+// Plane: one 4-byte (bf16) or 8-byte (f32) load.
+template <class P>
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* plane, int r, int c, int p, float (&v)[2]) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(plane + (r * P::kVoxels + c) * kCin + 2 * p);
+  v[0] = __uint_as_float(u << 16);
+  v[1] = __uint_as_float(u & 0xffff0000u);
 }
 
-__device__ __forceinline__ float low_bf16(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float high_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-__device__ __forceinline__ void load_row(const __nv_bfloat16* row, int c0, float (&v)[6]) {
-  const uint2 m = *reinterpret_cast<const uint2*>(row + c0);
-  const uint32_t l = *reinterpret_cast<const uint32_t*>(row + c0 - 2);
-  const uint32_t r = *reinterpret_cast<const uint32_t*>(row + c0 + 4);
-  v[0] = high_bf16(l);
-  v[1] = low_bf16(m.x);
-  v[2] = high_bf16(m.x);
-  v[3] = low_bf16(m.y);
-  v[4] = high_bf16(m.y);
-  v[5] = low_bf16(r);
+template <class P>
+__device__ __forceinline__ void load_pair(const float* plane, int r, int c, int p, float (&v)[2]) {
+  const float2 u = *reinterpret_cast<const float2*>(plane + (r * P::kVoxels + c) * kCin + 2 * p);
+  v[0] = u.x;
+  v[1] = u.y;
 }
 
-// The 9 (kh, kw) taps of one (channel, kd): 12 floats apart, 16-byte aligned.
-__device__ __forceinline__ void load_taps(const float* p, float (&t)[9]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  t[0] = a.x;
-  t[1] = a.y;
-  t[2] = a.z;
-  t[3] = a.w;
-  t[4] = b.x;
-  t[5] = b.y;
-  t[6] = b.z;
-  t[7] = b.w;
-  t[8] = p[8];
-}
-
-// acc[i][j] += the taps' correlation with the window at output (i, j).
-template <int kNH>
-__device__ __forceinline__ void stencil(const float (&t)[9], const float (&win)[kNH + 2][6], float (&acc)[kNH][kNW]) {
-#pragma unroll
-  for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
-#pragma unroll
-      for (int i = 0; i < kNH; ++i) {
-#pragma unroll
-        for (int j = 0; j < kNW; ++j) acc[i][j] = fmaf(t[kh * 3 + kw], win[i + kh][j + kw], acc[i][j]);
-      }
-    }
+// The lane's place: its channel pair p, its column in the tile (0 .. 31) and
+// its first row in the tile.
+struct Lane {
+  int p, col, row0;
+  __device__ __forceinline__ explicit Lane(int nh) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    p = lane % kPairs;
+    col = warp % kWarpsW * kCols + lane / kPairs;
+    row0 = warp / kWarpsW * nh;
   }
-}
-
-template <typename T, int kN>
-struct alignas(sizeof(T) * kN) Pack {
-  T v[kN];
 };
 
-// The thread's kNH x 4 outputs at (h, w) of an H x W output plane, plus `add`,
-// each rounded once; rows and columns outside the plane are not stored.
-template <typename T, bool kAligned, int kNH>
-__device__ __forceinline__ void store_rows(T* __restrict__ plane, int h, int w, int H, int W,
-                                           const float (&v)[kNH][kNW], float add) {
+// The lane's 54 taps: its two channels' 27, flipped (tap k -> 26 - k) for the
+// dgrad.
+template <typename T, bool kFlip>
+__device__ __forceinline__ void lane_taps(const T* __restrict__ weight, int p, float (&t)[2][27]) {
 #pragma unroll
-  for (int i = 0; i < kNH; ++i) {
-    if (h + i >= H) break;
-    T* p = plane + static_cast<int64_t>(h + i) * W + w;
-    if constexpr (kAligned) {  // W is a multiple of 4: the 4 columns are all inside or all outside
-      if (w < W) {
-        Pack<T, kNW> out;
+  for (int c = 0; c < 2; ++c) {
 #pragma unroll
-        for (int j = 0; j < kNW; ++j) from_f32(v[i][j] + add, out.v[j]);
-        *reinterpret_cast<Pack<T, kNW>*>(p) = out;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kNW; ++j) {
-        if (w + j < W) from_f32(v[i][j] + add, p[j]);
-      }
-    }
+    for (int k = 0; k < 27; ++k) t[c][k] = to_f32(weight[(2 * p + c) * 27 + (kFlip ? 26 - k : k)]);
   }
 }
 
-// y[n, 0, o] = bias + sum over (c, kd, kh, kw) of w[c, kd, kh, kw] x[n, c, o +
-// kd - pad, h + kh - 1, w + kw - 1]. Block: tile (blockIdx.x, blockIdx.y),
-// sample and D chunk blockIdx.z; slices (input plane p, channel c) in turn.
+template <int kNH>
+__device__ __forceinline__ void roll(float (&acc)[3][kNH]) {
+#pragma unroll
+  for (int i = 0; i < kNH; ++i) {
+    acc[2][i] = acc[1][i];
+    acc[1][i] = acc[0][i];
+    acc[0][i] = 0.0f;
+  }
+}
+
+// Let kKernel take kBytes of dynamic shared memory where that is above the
+// default 48 KB; once per kernel.
+template <auto kKernel, int kBytes>
+int allow_smem() {
+  static const int err = kBytes > 48 * 1024 ? static_cast<int>(cudaFuncSetAttribute(
+                                                  kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes))
+                                            : 0;
+  return err;
+}
+
+// y[n, o, h, w] = bias + sum over (c, kd, kh, kw) of w[c, kd, kh, kw] x[n, o +
+// kd - pad, h + kh - 1, w + kw - 1, c]. Block: tile (blockIdx.x, blockIdx.y),
+// sample and D chunk blockIdx.z; input planes in turn.
 template <typename T, bool kAligned>
-__global__ void __launch_bounds__(kFwdWarps * 32, 16)
+__global__ void __launch_bounds__(kFwdWarps * 32, 2)
 prob_forward_kernel(const T* __restrict__ x, const T* __restrict__ weight, const T* __restrict__ bias,
                     T* __restrict__ y, int D_in, int D_out, int H, int W, int pad, int chunk, int chunks) {
-  using S = Slice<T, kFwdRows, kFwdNH>;
+  using P = Plane<T, kFwdRows, kCin>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* taps = reinterpret_cast<float*>(smem);
-  T* ring = reinterpret_cast<T*>(smem + kWeightBytes);
+  T* ring = reinterpret_cast<T*>(smem);
   const int n = blockIdx.z / chunks, o0 = blockIdx.z % chunks * chunk;
   const int outs = min(chunk, D_out - o0), planes = outs + 2;  // input planes o0 - pad .. o0 - pad + outs + 1
   const int h0 = blockIdx.y * kFwdRows, w0 = blockIdx.x * kTileW;
   const int64_t hw = static_cast<int64_t>(H) * W;
-  const T* xn = x + static_cast<int64_t>(n) * kCin * D_in * hw;
-  for (int i = threadIdx.x; i < kWeights; i += blockDim.x) taps[i / 9 * 12 + i % 9] = to_f32(weight[i]);
-  const float b = bias == nullptr ? 0.0f : to_f32(bias[0]);
+  const T* xn = x + static_cast<int64_t>(n) * D_in * hw * kCin;
 
-  auto fill = [&](int s) {  // slice s = (input plane s / 8, channel s % 8)
-    if (s < planes * kCin) {
-      const int q = o0 - pad + s / kCin, c = s % kCin;
-      fill_slice<T, kAligned, S>(ring + s % kFwdStages * S::kElems,
-                                 q >= 0 && q < D_in ? xn + (static_cast<int64_t>(c) * D_in + q) * hw : nullptr, x,
-                                 h0, w0, H, W);
+  auto fill = [&](int s) {
+    if (s < planes) {
+      const int q = o0 - pad + s;
+      fill_plane<T, kAligned, P, kFwdWarps * 32>(ring + s % kFwdStages * P::kBytes / static_cast<int>(sizeof(T)),
+                                                 q >= 0 && q < D_in ? xn + q * hw * kCin : nullptr, x, h0, w0, H, W);
     }
     cp_async_commit();
   };
 #pragma unroll
   for (int s = 0; s < kFwdStages - 1; ++s) fill(s);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = (warp * kTY + lane / kTX) * kFwdNH, c0 = lane % kTX * kNW;  // the thread's outputs in the tile
-  const bool active = h0 + r0 < H && w0 + c0 < W;
-  float acc[3][kFwdNH][kNW] = {};  // output planes p (kd 0), p - 1 (kd 1), p - 2 (kd 2) of the chunk
-  for (int p = 0; p < planes; ++p) {
-    const int q = o0 - pad + p;
-    for (int c = 0; c < kCin; ++c) {
-      const int s = p * kCin + c;
-      cp_async_wait<kFwdStages - 2>();  // slice s has landed
-      __syncthreads();                  // for every thread, and slice s - 1's slot is free
-      fill(s + kFwdStages - 1);
-      if (!active || q < 0 || q >= D_in) continue;  // a padding plane adds nothing
-      const T* rows = ring + s % kFwdStages * S::kElems + r0 * S::kPitch + S::kLead;
-      float win[kFwdNH + 2][6];
+  const Lane l(kFwdNH);
+  float taps[2][27];
+  lane_taps<T, false>(weight, l.p, taps);
+  const float b = bias == nullptr ? 0.0f : to_f32(bias[0]);
+  const int w = w0 + l.col;
+  float acc[3][kFwdNH] = {};  // output planes s (kd 0), s - 1 (kd 1), s - 2 (kd 2) of the chunk
+  for (int s = 0; s < planes; ++s) {
+    const int q = o0 - pad + s;
+    cp_async_wait<kFwdStages - 2>();  // plane s has landed
+    __syncthreads();                  // for every thread, and plane s - 1's slot is free
+    fill(s + kFwdStages - 1);
+    if (q >= 0 && q < D_in) {  // a padding plane adds nothing
+      const T* plane = ring + s % kFwdStages * P::kBytes / static_cast<int>(sizeof(T));
 #pragma unroll
-      for (int i = 0; i < kFwdNH + 2; ++i) load_row(rows + i * S::kPitch, c0, win[i]);
+      for (int i = 0; i < kFwdNH + 2; ++i) {
+        float v[3][2];
 #pragma unroll
-      for (int kd = 0; kd < 3; ++kd) {
-        if (p - kd < 0 || p - kd >= outs) continue;  // an output plane outside the chunk
-        float t[9];
-        load_taps(taps + (c * 3 + kd) * 12, t);
-        stencil<kFwdNH>(t, win, acc[kd]);
+        for (int kw = 0; kw < 3; ++kw) load_pair<P>(plane, l.row0 + i, l.col + kw, l.p, v[kw]);
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+          const int oi = i - kh;
+          if (oi < 0 || oi >= kFwdNH) continue;
+#pragma unroll
+          for (int kd = 0; kd < 3; ++kd) {  // a plane outside the chunk is rolled out unstored
+            float a = acc[kd][oi];
+#pragma unroll
+            for (int kw = 0; kw < 3; ++kw) {
+              a = fmaf(taps[0][kd * 9 + kh * 3 + kw], v[kw][0], a);
+              a = fmaf(taps[1][kd * 9 + kh * 3 + kw], v[kw][1], a);
+            }
+            acc[kd][oi] = a;
+          }
+        }
       }
     }
-    if (active && p >= 2) {
-      store_rows<T, kAligned, kFwdNH>(y + (static_cast<int64_t>(n) * D_out + o0 + p - 2) * hw, h0 + r0, w0 + c0, H,
-                                      W, acc[2], b);
-    }
+    if (s >= 2) {  // output plane o0 + s - 2: the column's 4 pairs added, then the bias; lane p stores rows p, p + 4
+      T* out = y + (static_cast<int64_t>(n) * D_out + o0 + s - 2) * hw;
 #pragma unroll
-    for (int i = 0; i < kFwdNH; ++i) {
-#pragma unroll
-      for (int j = 0; j < kNW; ++j) {
-        acc[2][i][j] = acc[1][i][j];
-        acc[1][i][j] = acc[0][i][j];
-        acc[0][i][j] = 0.0f;
+      for (int i = 0; i < kFwdNH; ++i) {
+        float t = acc[2][i];
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+        const int h = h0 + l.row0 + i;
+        if (i % kPairs == l.p && h < H && w < W) from_f32(t + b, out[static_cast<int64_t>(h) * W + w]);
       }
     }
+    roll(acc);
   }
   cp_async_wait<0>();
 }
 
-// gx[n, c, q] = sum over (a, b, e) of g[n, 0, q + a - 2 + pad, h + b - 1, w + e
-// - 1] w[c, 2 - a, 2 - b, 2 - e]: one output plane q at a time from the
-// gradient planes q - 2 + pad .. q + pad, all 8 channels in registers.
+// The dgrad's store of one row of the lane's column: the 4 lanes of the column
+// hold channel pairs 0..3 of rows 4k .. 4k + 3 as `words` (kWords 32-bit words
+// a pair: 1 in bf16, 2 in f32); after three exchanges lane p holds all 8
+// channels of row 4k + p, which it stores as one voxel.
+template <typename T, int kWords>
+__device__ __forceinline__ void store_voxel(T* dst, const uint32_t (&words)[4][kWords], int p, bool ok) {
+  uint32_t voxel[4][kWords];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int send_row = p ^ m, slot = p ^ m;  // send row (p ^ m) to lane p ^ m; receive its pair for row p
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      uint32_t u = words[0][k];
+#pragma unroll
+      for (int r = 1; r < 4; ++r) u = send_row == r ? words[r][k] : u;
+      if (m != 0) u = __shfl_xor_sync(0xffffffffu, u, m);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j == slot) voxel[j][k] = u;
+      }
+    }
+  }
+  if (ok) {
+    uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      // 16-byte store k of the voxel: words 4k .. 4k + 3 in channel order
+      uint32_t q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] = voxel[(4 * k + j) / kWords][(4 * k + j) % kWords];
+      out[k] = make_uint4(q[0], q[1], q[2], q[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void pack_pair(float a, float b, uint32_t (&w)[1]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+  w[0] = *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void pack_pair(float a, float b, uint32_t (&w)[2]) {
+  w[0] = __float_as_uint(a);
+  w[1] = __float_as_uint(b);
+}
+
+// gx[n, q, h, w, c] = sum over (a, b, e) of g[n, q + a - 2 + pad, h + b - 1, w +
+// e - 1] w[c, 2 - a, 2 - b, 2 - e]: the gradient planes q0 - 2 + pad + s in
+// turn, each into output planes s - a of the chunk.
 template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kDgWarps * 32, 4)
 prob_dgrad_kernel(const T* __restrict__ g, const T* __restrict__ weight, T* __restrict__ gx, int D_in, int D_out,
                   int H, int W, int pad, int chunk, int chunks) {
-  using S = Slice<T, kDgRows, kDgNH>;
+  using S = Slice<T, kDgRows>;
+  constexpr int kWords = static_cast<int>(sizeof(T)) / 2;
+  static_assert(kDgNH == kPairs, "a column's 4 lanes store one row each");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* taps = reinterpret_cast<float*>(smem);  // [a][c][12], the taps flipped
-  T* ring = reinterpret_cast<T*>(smem + kWeightBytes);
+  T* ring = reinterpret_cast<T*>(smem);
   const int n = blockIdx.z / chunks, q0 = blockIdx.z % chunks * chunk;
   const int outs = min(chunk, D_in - q0), planes = outs + 2;  // gradient planes q0 - 2 + pad + s
   const int h0 = blockIdx.y * kDgRows, w0 = blockIdx.x * kTileW;
   const int64_t hw = static_cast<int64_t>(H) * W;
   const T* gn = g + static_cast<int64_t>(n) * D_out * hw;
-  for (int i = threadIdx.x; i < kWeights; i += blockDim.x) {
-    const int c = i / 27, k = i % 27;
-    taps[((2 - k / 9) * kCin + c) * 12 + 8 - k % 9] = to_f32(weight[i]);
-  }
 
   auto fill = [&](int s) {
     if (s < planes) {
       const int o = q0 - 2 + pad + s;
-      fill_slice<T, kAligned, S>(ring + s % kDgStages * S::kElems, o >= 0 && o < D_out ? gn + o * hw : nullptr, g,
-                                 h0, w0, H, W);
+      fill_slice<T, kAligned, S, kDgWarps * 32>(ring + s % kDgStages * S::kElems,
+                                                o >= 0 && o < D_out ? gn + o * hw : nullptr, g, h0, w0, H, W);
     }
     cp_async_commit();
   };
 #pragma unroll
   for (int s = 0; s < kDgStages - 1; ++s) fill(s);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = (warp * kTY + lane / kTX) * kDgNH, c0 = lane % kTX * kNW;
-  const bool active = h0 + r0 < H && w0 + c0 < W;
-  for (int qi = 0; qi < outs; ++qi) {
-    cp_async_wait<kDgStages - 4>();  // slices qi .. qi + 2 have landed
-    __syncthreads();                 // for every thread, and slice qi - 1's slot is free
-    fill(qi + kDgStages - 1);
-    if (!active) continue;
-    float acc[kCin][kDgNH][kNW] = {};
+  const Lane l(kDgNH);
+  float taps[2][27];  // [c][a * 9 + b * 3 + e] = w[c, 2 - a, 2 - b, 2 - e]
+  lane_taps<T, true>(weight, l.p, taps);
+  const int w = w0 + l.col;
+  float acc[3][kDgNH][2] = {};  // output planes s (a 0), s - 1 (a 1), s - 2 (a 2) of the chunk, the lane's pair
+  for (int s = 0; s < planes; ++s) {
+    const int o = q0 - 2 + pad + s;
+    cp_async_wait<kDgStages - 2>();
+    __syncthreads();
+    fill(s + kDgStages - 1);
+    if (o >= 0 && o < D_out) {  // a padding plane adds nothing
+      const T* rows = ring + s % kDgStages * S::kElems + S::kLead - 1 + l.col;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int o = q0 - 2 + pad + qi + a;
-      if (o < 0 || o >= D_out) continue;  // a padding plane adds nothing
-      const T* rows = ring + (qi + a) % kDgStages * S::kElems + r0 * S::kPitch + S::kLead;
-      float win[kDgNH + 2][6];
+      for (int i = 0; i < kDgNH + 2; ++i) {
+        float v[3];
 #pragma unroll
-      for (int i = 0; i < kDgNH + 2; ++i) load_row(rows + i * S::kPitch, c0, win[i]);
+        for (int e = 0; e < 3; ++e) v[e] = to_f32(rows[(l.row0 + i) * S::kPitch + e]);
 #pragma unroll
-      for (int c = 0; c < kCin; ++c) {
-        float t[9];
-        load_taps(taps + (a * kCin + c) * 12, t);
-        stencil<kDgNH>(t, win, acc[c]);
+        for (int b = 0; b < 3; ++b) {
+          const int oi = i - b;
+          if (oi < 0 || oi >= kDgNH) continue;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {  // a plane outside the chunk is rolled out unstored
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float t = acc[a][oi][c];
+#pragma unroll
+              for (int e = 0; e < 3; ++e) t = fmaf(taps[c][a * 9 + b * 3 + e], v[e], t);
+              acc[a][oi][c] = t;
+            }
+          }
+        }
+      }
+    }
+    if (s >= 2) {  // output plane q0 + s - 2
+      T* out = gx + (static_cast<int64_t>(n) * D_in + q0 + s - 2) * hw * kCin;
+      if constexpr (kAligned) {
+        uint32_t words[kDgNH][kWords];
+#pragma unroll
+        for (int i = 0; i < kDgNH; ++i) pack_pair(acc[2][i][0], acc[2][i][1], words[i]);
+        const int h = h0 + l.row0 + l.p;
+        store_voxel<T, kWords>(out + (static_cast<int64_t>(h) * W + w) * kCin, words, l.p, h < H && w < W);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kDgNH; ++i) {
+          const int h = h0 + l.row0 + i;
+          if (h < H && w < W) {
+            T* dst = out + (static_cast<int64_t>(h) * W + w) * kCin + 2 * l.p;
+            from_f32(acc[2][i][0], dst[0]);
+            from_f32(acc[2][i][1], dst[1]);
+          }
+        }
       }
     }
 #pragma unroll
-    for (int c = 0; c < kCin; ++c) {
-      store_rows<T, kAligned, kDgNH>(gx + ((static_cast<int64_t>(n) * kCin + c) * D_in + q0 + qi) * hw, h0 + r0,
-                                     w0 + c0, H, W, acc[c], 0.0f);
+    for (int i = 0; i < kDgNH; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        acc[2][i][c] = acc[1][i][c];
+        acc[1][i][c] = acc[0][i][c];
+        acc[0][i][c] = 0.0f;
+      }
     }
   }
   cp_async_wait<0>();
 }
 
-// The block's share of dw[c, kd, kh, kw] = sum of g[n, 0, o, h, w] x[n, c, o +
-// kd - pad, h + kh - 1, w + kw - 1] and of dbias = sum of g, over its tile and
-// D chunk: warp w computes the 27 sums of channels 2w and 2w + 1;
-// part[k * blocks + block].
-// Stage p holds input plane o0 - pad + p (8 slices) and gradient plane o0 + p.
+// The block's share of dw[c, kd, kh, kw] = sum of g[n, o, h, w] x[n, o + kd -
+// pad, h + kh - 1, w + kw - 1, c] and of dbias = sum of g, over its tile and D
+// chunk: part[k * blocks + block]. Stage s holds input plane o0 - pad + s and
+// gradient plane o0 + s (zeros past the chunk).
 template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kWgWarps * 32, 4)
 prob_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ part, int D_in, int D_out,
                   int H, int W, int pad, int chunk, int chunks) {
-  using S = Slice<T, kWgRows, kWgNH>;
+  using P = Plane<T, kWgRows, kCin>;
+  using S = Slice<T, kWgRows>;
+  constexpr int kStage = (P::kBytes + S::kBytes) / static_cast<int>(sizeof(T));  // elements of a stage
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   const int n = blockIdx.z / chunks, o0 = blockIdx.z % chunks * chunk;
   const int outs = min(chunk, D_out - o0), planes = outs + 2;
   const int h0 = blockIdx.y * kWgRows, w0 = blockIdx.x * kTileW;
   const int64_t hw = static_cast<int64_t>(H) * W;
-  const T* xn = x + static_cast<int64_t>(n) * kCin * D_in * hw;
+  const T* xn = x + static_cast<int64_t>(n) * D_in * hw * kCin;
   const T* gn = g + static_cast<int64_t>(n) * D_out * hw;
 
-  auto fill = [&](int p) {
-    if (p < planes) {
-      T* stage = ring + p % kWgStages * (kCin + 1) * S::kElems;
-      const int q = o0 - pad + p;
-      for (int c = 0; c < kCin; ++c) {
-        fill_slice<T, kAligned, S>(stage + c * S::kElems,
-                                   q >= 0 && q < D_in ? xn + (static_cast<int64_t>(c) * D_in + q) * hw : nullptr, x,
-                                   h0, w0, H, W);
-      }
-      fill_slice<T, kAligned, S>(stage + kCin * S::kElems, p < outs ? gn + (o0 + p) * hw : nullptr, g, h0, w0, H, W);
+  auto fill = [&](int s) {
+    if (s < planes) {
+      T* stage = ring + s % kWgStages * kStage;
+      const int q = o0 - pad + s;
+      fill_plane<T, kAligned, P, kWgWarps * 32>(stage, q >= 0 && q < D_in ? xn + q * hw * kCin : nullptr, x, h0, w0,
+                                                H, W);
+      fill_slice<T, kAligned, S, kWgWarps * 32>(stage + P::kBytes / static_cast<int>(sizeof(T)),
+                                                s < outs ? gn + (o0 + s) * hw : nullptr, g, h0, w0, H, W);
     }
     cp_async_commit();
   };
 #pragma unroll
-  for (int p = 0; p < kWgStages - 1; ++p) fill(p);
+  for (int s = 0; s < kWgStages - 1; ++s) fill(s);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = lane / kTX * kWgNH, c0 = lane % kTX * kNW;
-  float sums[kWgChannels][27] = {}, bsum = 0.0f;
-  float gr[3][kWgNH][kNW] = {};  // gradient planes p (kd 0), p - 1 (kd 1), p - 2 (kd 2) of the chunk
-  for (int p = 0; p < planes; ++p) {
+  const Lane l(kWgNH);
+  float sums[2][27] = {}, bsum = 0.0f;
+  float gr[3][kWgNH] = {};  // gradient planes s (kd 0), s - 1 (kd 1), s - 2 (kd 2) of the chunk
+  for (int s = 0; s < planes; ++s) {
     cp_async_wait<kWgStages - 2>();
     __syncthreads();
-    fill(p + kWgStages - 1);
-    const T* stage = ring + p % kWgStages * (kCin + 1) * S::kElems;
+    fill(s + kWgStages - 1);
+    const T* stage = ring + s % kWgStages * kStage;
+    const T* grow = stage + P::kBytes / static_cast<int>(sizeof(T)) + S::kLead + l.col;
+    roll(gr);
 #pragma unroll
-    for (int i = 0; i < kWgNH; ++i) {
-      float v[6];
-      load_row(stage + kCin * S::kElems + (r0 + 1 + i) * S::kPitch + S::kLead, c0, v);
+    for (int i = 0; i < kWgNH; ++i) gr[0][i] = to_f32(grow[(l.row0 + 1 + i) * S::kPitch]);  // 0 past the chunk
+    if (l.p == 0) {
 #pragma unroll
-      for (int j = 0; j < kNW; ++j) {
-        gr[2][i][j] = gr[1][i][j];
-        gr[1][i][j] = gr[0][i][j];
-        gr[0][i][j] = v[j + 1];  // 0 past the chunk's last output plane (the slice is zero filled)
-      }
+      for (int i = 0; i < kWgNH; ++i) bsum += gr[0][i];
     }
-    if (warp == 0) {
-#pragma unroll
-      for (int i = 0; i < kWgNH; ++i) {
-#pragma unroll
-        for (int j = 0; j < kNW; ++j) bsum += gr[0][i][j];
-      }
-    }
-    const int q = o0 - pad + p;
+    const int q = o0 - pad + s;
     if (q < 0 || q >= D_in) continue;  // a padding plane adds nothing
 #pragma unroll
-    for (int cc = 0; cc < kWgChannels; ++cc) {
-      const T* rows = stage + (warp * kWgChannels + cc) * S::kElems + r0 * S::kPitch + S::kLead;
-      float win[kWgNH + 2][6];
+    for (int i = 0; i < kWgNH + 2; ++i) {
+      float v[3][2];
 #pragma unroll
-      for (int i = 0; i < kWgNH + 2; ++i) load_row(rows + i * S::kPitch, c0, win[i]);
+      for (int kw = 0; kw < 3; ++kw) load_pair<P>(stage, l.row0 + i, l.col + kw, l.p, v[kw]);
 #pragma unroll
-      for (int kd = 0; kd < 3; ++kd) {
-        if (p - kd < 0 || p - kd >= outs) continue;
+      for (int kh = 0; kh < 3; ++kh) {
+        const int oi = i - kh;
+        if (oi < 0 || oi >= kWgNH) continue;
 #pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
+        for (int kd = 0; kd < 3; ++kd) {  // gradient planes outside the chunk are zeros
 #pragma unroll
           for (int kw = 0; kw < 3; ++kw) {
-            float s = sums[cc][kd * 9 + kh * 3 + kw];
 #pragma unroll
-            for (int i = 0; i < kWgNH; ++i) {
-#pragma unroll
-              for (int j = 0; j < kNW; ++j) s = fmaf(gr[kd][i][j], win[i + kh][j + kw], s);
+            for (int c = 0; c < 2; ++c) {
+              sums[c][kd * 9 + kh * 3 + kw] = fmaf(gr[kd][oi], v[kw][c], sums[c][kd * 9 + kh * 3 + kw]);
             }
-            sums[cc][kd * 9 + kh * 3 + kw] = s;
           }
         }
       }
     }
   }
   cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it takes the warps' sums
+
+  // the warp's columns added (lanes of one pair: offsets 4, 8, 16), then the warps in order
+  float* warp_sums = reinterpret_cast<float*>(smem);  // [kWgWarps][kSums]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) bsum += __shfl_xor_sync(0xffffffffu, bsum, off);
-  const int64_t blocks = static_cast<int64_t>(gridDim.x) * gridDim.y * gridDim.z;
-  const int64_t block = (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-#pragma unroll
-  for (int cc = 0; cc < kWgChannels; ++cc) {
-    float mine = 0.0f;  // lane k keeps sum k
+  for (int c = 0; c < 2; ++c) {
 #pragma unroll
     for (int k = 0; k < 27; ++k) {
+      float t = sums[c][k];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sums[cc][k] += __shfl_xor_sync(0xffffffffu, sums[cc][k], off);
-      mine = lane == k ? sums[cc][k] : mine;
+      for (int off = kPairs; off < 32; off <<= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+      if (lane < kPairs) warp_sums[warp * kSums + (2 * l.p + c) * 27 + k] = t;
     }
-    if (lane < 27) part[((warp * kWgChannels + cc) * 27 + lane) * blocks + block] = mine;
   }
-  if (warp == 0 && lane == 27) part[kWeights * blocks + block] = bsum;
+#pragma unroll
+  for (int off = kPairs; off < 32; off <<= 1) bsum += __shfl_xor_sync(0xffffffffu, bsum, off);
+  if (lane == 0) warp_sums[warp * kSums + kWeights] = bsum;
+  __syncthreads();
+  const int64_t blocks = static_cast<int64_t>(gridDim.x) * gridDim.y * gridDim.z;
+  const int64_t block = (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  for (int k = threadIdx.x; k < kSums; k += kWgWarps * 32) {
+    float t = warp_sums[k];
+#pragma unroll
+    for (int wi = 1; wi < kWgWarps; ++wi) t += warp_sums[wi * kSums + k];
+    part[k * blocks + block] = t;
+  }
 }
 
 // One block per sum k: part[k * blocks ..] added in f64 in a fixed order (a
@@ -499,8 +573,9 @@ prob_wgrad_finalize_kernel(const float* __restrict__ part, int64_t blocks, T* __
 template <typename T, bool kAligned>
 int forward_launch(const void* x, const void* weight, const void* bias, void* y, int B, int D_in, int D_out, int H,
                    int W, int pad, int tiles_w, int tiles_h, int chunk, int chunks, cudaStream_t s) {
-  constexpr int kSmem = kWeightBytes + kFwdStages * Slice<T, kFwdRows, kFwdNH>::kBytes;
-  static_assert(kSmem <= 48 * 1024, "the forward's ring must fit the default shared memory");
+  constexpr int kSmem = kFwdStages * Plane<T, kFwdRows, kCin>::kBytes;
+  const int err = allow_smem<prob_forward_kernel<T, kAligned>, kSmem>();
+  if (err != 0) return err;
   prob_forward_kernel<T, kAligned><<<dim3(tiles_w, tiles_h, B * chunks), kFwdWarps * 32, kSmem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(y), D_in,
       D_out, H, W, pad, chunk, chunks);
@@ -512,7 +587,7 @@ int backward_launch(const void* x, const void* weight, const void* g, void* gx, 
                     void* dbias, int B, int D_in, int D_out, int H, int W, int pad, const int* dplan,
                     const int* wplan, cudaStream_t s) {
   if (gx != nullptr) {
-    constexpr int kSmem = kWeightBytes + kDgStages * Slice<T, kDgRows, kDgNH>::kBytes;
+    constexpr int kSmem = kDgStages * Slice<T, kDgRows>::kBytes;
     static_assert(kSmem <= 48 * 1024, "the dgrad's ring must fit the default shared memory");
     prob_dgrad_kernel<T, kAligned><<<dim3(dplan[0], dplan[1], B * dplan[3]), kDgWarps * 32, kSmem, s>>>(
         static_cast<const T*>(g), static_cast<const T*>(weight), static_cast<T*>(gx), D_in, D_out, H, W, pad,
@@ -521,13 +596,15 @@ int backward_launch(const void* x, const void* weight, const void* g, void* gx, 
     if (err != 0) return err;
   }
   if (dweight != nullptr) {
-    constexpr int kSmem = kWgStages * (kCin + 1) * Slice<T, kWgRows, kWgNH>::kBytes;
-    static_assert(kSmem <= 48 * 1024, "the wgrad's ring must fit the default shared memory");
+    constexpr int kSmem = kWgStages * (Plane<T, kWgRows, kCin>::kBytes + Slice<T, kWgRows>::kBytes);
+    static_assert(kSmem >= kWgWarps * kSums * 4, "the wgrad's ring must hold the warps' sums");
+    int err = allow_smem<prob_wgrad_kernel<T, kAligned>, kSmem>();
+    if (err != 0) return err;
     const dim3 grid(wplan[0], wplan[1], B * wplan[3]);
     prob_wgrad_kernel<T, kAligned><<<grid, kWgWarps * 32, kSmem, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(part), D_in, D_out, H, W, pad,
         wplan[2], wplan[3]);
-    const int err = static_cast<int>(cudaGetLastError());
+    err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     prob_wgrad_finalize_kernel<T><<<dbias != nullptr ? kSums : kWeights, kFinalThreads, 0, s>>>(
         static_cast<const float*>(part), static_cast<int64_t>(grid.x) * grid.y * grid.z, static_cast<T*>(dweight),
@@ -539,17 +616,19 @@ int backward_launch(const void* x, const void* weight, const void* g, void* gx, 
 
 }  // namespace
 
-// FN<element type, 16-byte rows>(...): bf16 or f32, aligned or not.
+// FN<element type, 16-byte copies>(...): bf16 or f32, aligned or not.
 #define PROB_DISPATCH(bf16, aligned, FN, ...)                                                                   \
   ((bf16) ? ((aligned) ? FN<__nv_bfloat16, true>(__VA_ARGS__) : FN<__nv_bfloat16, false>(__VA_ARGS__))            \
           : ((aligned) ? FN<float, true>(__VA_ARGS__) : FN<float, false>(__VA_ARGS__)))
 
 // Plain C interface for ctypes. Pointers are device pointers; the caller has
-// checked that x [B, 8, D_in, H, W], y and g [B, 1, D_out, H, W], gx (x's
-// shape), the weight [1, 8, 3, 3, 3] and the bias [1] (or null) are
+// checked that x [B, D_in, H, W, 8] (NDHWC), y and g [B, D_out, H, W], gx
+// (x's shape), the weight [1, 8, 3, 3, 3] and the bias [1] (or null) are
 // contiguous and of one dtype (bf16 = 1: bf16, else f32), that D_out = D_in +
-// 2 pad - 2 >= 1 with pad 0 or 1, and sets aligned only where W is a multiple
-// of 16 bytes' values and every volume's address is 16-byte aligned. A plan is
+// 2 pad - 2 >= 1 with pad 0 or 1, and sets aligned only where every volume's
+// address is 16-byte aligned and, in the backward (whose single-channel
+// gradient is copied 16 bytes of a row at a time), W is a multiple of 16
+// bytes' values. A plan is
 // (tiles along W, tiles along H, planes a chunk, chunks) of the kernel's tile
 // (prob_conv_tile_rows x prob_conv_tile_cols). Each returns the first failed
 // launch's cudaError_t (0 on success).

@@ -1,5 +1,7 @@
-"""Conv/BN building blocks of MVSNet (2D and 3D), NCHW / NCDHW inside, and
-R-MVSNet's convolutional GRU cell (``ConvGRUCell``).
+"""Conv/BN building blocks of MVSNet (2D and 3D), and R-MVSNet's
+convolutional GRU cell (``ConvGRUCell``). The 2D blocks take NCHW tensors;
+the 3D blocks take [B, C, D, H, W] tensors laid out NDHWC in memory
+(``torch.channels_last_3d``) and return them so.
 
 Counterpart of the non-flat blocks of
 ``scene_3dreconstruction_mvsnet_tpu/models/blocks.py``. Module names follow
@@ -16,6 +18,15 @@ cast params to the computation dtype; BatchNorm takes the low-precision input
 with its f32 parameters. A 3D block's BatchNorm and the ReLU after it run as
 the hand-written kernels of ``ops/kernels/batch_norm.py`` on a CUDA tensor.
 
+NDHWC: cuDNN's bf16 3D engines are NHWC, so a 3D conv's input and weight go
+to it channels-last and its output comes back so, and the BatchNorm kernels
+read and write that layout; nothing is transposed between the sweep's
+volume and ``prob``. A 3D conv's weight is cast channels-last with its dtype.
+PyTorch's CPU conv3d writes NCDHW in f32 and f64, so on the CPU a 3D conv's
+output is copied to NDHWC (``_conv3d``). An input in another layout (an
+NCDHW tensor a caller hands a 3D block) is copied once by ``to_ndhwc``,
+inside the ``costreg.to_ndhwc`` span, which counts how often that happens.
+
 In training, a BatchNorm whose ``process_group`` holds more than one rank
 (set by ``parallel.make_sharded_train_step``) takes its statistics over the
 global batch, as the JAX package's sharded step does under GSPMD; while
@@ -31,6 +42,9 @@ their BatchNorm reduces over the ranks whose slices make the statistics
 """
 
 from __future__ import annotations
+
+import functools
+import itertools
 
 import torch
 import torch.nn as nn
@@ -92,48 +106,93 @@ class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
 
 
 class BatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
-    normalize = staticmethod(batch_norm_relu)  # the kernels on a CUDA tensor
+    """On NDHWC input (another layout goes through ``to_ndhwc``); the
+    kernels on a CUDA tensor."""
+
+    normalize = staticmethod(batch_norm_relu)
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        return super().forward(to_ndhwc(x), relu)
 
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
-    return None if p is None else p.to(dtype)
+    """A parameter in the compute dtype; a 3D conv's weight also NDHWC."""
+    if p is None:
+        return None
+    return p.to(dtype, memory_format=torch.channels_last_3d) if p.dim() == 5 else p.to(dtype)
+
+
+def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, C, D, H, W] laid out NDHWC: ``x`` itself when it already is,
+    else a copy made inside the ``costreg.to_ndhwc`` span (``utils/
+    tracing.py``), so a traced run counts every fallback."""
+    if x.is_contiguous(memory_format=torch.channels_last_3d):
+        return x
+    with tracing.span("costreg.to_ndhwc"):
+        return x.contiguous(memory_format=torch.channels_last_3d)
+
+
+def _conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, stride, padding) -> torch.Tensor:
+    """``F.conv3d`` of NDHWC x and w -> NDHWC. cuDNN writes that layout from
+    them; PyTorch's CPU conv3d writes NCDHW in f32 and f64, copied here."""
+    y = F.conv3d(x, w, b, stride, padding)
+    return y if y.is_cuda else y.contiguous(memory_format=torch.channels_last_3d)
+
+
+@functools.lru_cache(maxsize=None)
+def _parity_taps(device: torch.device) -> torch.Tensor:
+    """64 indices into a 3x3x3 kernel's 27 taps and a zero 28th: for
+    output-parity class (pd, ph, pw) and its 2x2x2 window tap (td, th, tw),
+    the tap that class reads there. Per axis, y[2m] = w[1] x[m] and y[2m+1] =
+    w[2] x[m] + w[0] x[m+1]: class 0 takes tap 0 -> w[1] (tap 1 is zero),
+    class 1 tap 0 -> w[2] and tap 1 -> w[0]."""
+    axis = ((1, None), (2, 0))  # [class][window tap] -> kernel tap, or none
+    index = []
+    for cls in itertools.product((0, 1), repeat=3):
+        for tap in itertools.product((0, 1), repeat=3):
+            k = [axis[c][t] for c, t in zip(cls, tap)]
+            index.append(27 if None in k else k[0] * 9 + k[1] * 3 + k[2])
+    return torch.tensor(index, device=device)
 
 
 def _parity_weight(w: torch.Tensor) -> torch.Tensor:
     """The stride-2 3x3x3 transposed conv's weight ``w`` [Cin, Cout, 3, 3, 3]
     -> the output-parity classes' correlation kernels as one conv's weight,
-    [8 Cout, Cin, 2, 2, 2]: output channel (pd, ph, pw, o), then the taps.
-    Per axis, y[2m] = w[1] x[m] and y[2m+1] = w[2] x[m] + w[0] x[m+1]: class
-    0 takes tap 0 -> w[1] (tap 1 is zero), class 1 tap 0 -> w[2] and tap 1
-    -> w[0]."""
-    for d in (2, 3, 4):
-        k0, k1, k2 = w.narrow(d, 0, 1), w.narrow(d, 1, 1), w.narrow(d, 2, 1)
-        w = torch.cat([k1, torch.zeros_like(k1), k2, k0], d)
+    [8 Cout, Cin, 2, 2, 2] NDHWC: output channel (pd, ph, pw, o), then the
+    taps (``_parity_taps``); three launches: the zero tap, the gather, the
+    layout."""
     cin, cout = w.shape[:2]
-    return w.reshape(cin, cout, 2, 2, 2, 2, 2, 2).permute(2, 4, 6, 1, 0, 3, 5, 7).reshape(8 * cout, cin, 2, 2, 2)
+    taps = F.pad(w.reshape(cin, cout, 27), (0, 1)).index_select(2, _parity_taps(w.device))  # [Cin, Cout, class tap]
+    taps = taps.view(cin, cout, 8, 8).permute(2, 1, 3, 0).contiguous()  # [class, Cout, tap, Cin]: NDHWC
+    return taps.view(8 * cout, 2, 2, 2, cin).permute(0, 4, 1, 2, 3)
 
 
 def conv_transpose3d_k3s2(x: torch.Tensor, w: torch.Tensor, output_padding=(1, 1, 1),
                           halo_d: bool = False) -> torch.Tensor:
     """``F.conv_transpose3d(x, w, None, 2, 1, output_padding)`` by output
-    parity, ``w`` [Cin, Cout, 3, 3, 3] in the dtype of ``x``. The 8 classes
-    (pd, ph, pw) are one stride-1 conv on a 2x2x2 window over ``x`` padded by
-    one zero plane at the upper end of each axis, 8 Cout channels out
-    (``_parity_weight``; a class's missing taps are zero), so each output
-    value is rounded once; one depth-to-space copy interleaves them. (Eight
-    convs, each a class with only its own taps, took 2.4-3.8x as long on an
-    H100 at CostRegNet's shapes.) ``output_padding`` 0 on an axis drops its last
-    (odd) plane. With ``halo_d``, the last plane of D is the upper
+    parity, x NDHWC and ``w`` [Cin, Cout, 3, 3, 3] in the dtype of ``x`` ->
+    NDHWC. The 8 classes (pd, ph, pw) are one stride-1 conv on a 2x2x2
+    window over ``x`` padded by one zero plane at the upper end of each axis,
+    8 Cout channels out (``_parity_weight``; a class's missing taps are
+    zero), so each output value is rounded once; one depth-to-space copy
+    interleaves them, from [b, m_d, m_h, m_w, (pd, ph, pw, o)] to
+    [b, 2 m_d + pd, 2 m_h + ph, 2 m_w + pw, o], the Cout channels of a voxel
+    contiguous on both sides. (Eight convs, each a class with only its own
+    taps, took 2.4-3.8x as long on an H100 at CostRegNet's shapes.)
+    ``output_padding`` 0 on an axis drops its last (odd) plane, which costs
+    a second copy. With ``halo_d``, the last plane of D is the upper
     neighbour's (``parallel/halo.py``) and stands in for the zero plane:
     D_slice + 1 planes give the slice's 2 D_slice. The ``deconv.parity``
     span (``utils/tracing.py``)."""
     with tracing.span("deconv.parity"):
         xp = F.pad(x, (0, 1, 0, 1, 0, 0 if halo_d else 1))
         b, cout, n = x.shape[0], w.shape[1], [s - 1 for s in xp.shape[2:]]
-        y = F.conv3d(xp, _parity_weight(w)).reshape(b, 2, 2, 2, cout, *n).permute(0, 4, 5, 1, 6, 2, 7, 3)
-        y = y.reshape(b, cout, *(2 * s for s in n))
+        y = _conv3d(xp, _parity_weight(w), None, 1, 0).permute(0, 2, 3, 4, 1).reshape(b, *n, 2, 2, 2, cout)
+        y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, *(2 * s for s in n), cout).permute(0, 4, 1, 2, 3)
         keep = [2 * s - 1 + p for s, p in zip(n, (1 if halo_d else output_padding[0], *output_padding[1:]))]
-        return y if keep == list(y.shape[2:]) else y[..., :keep[0], :keep[1], :keep[2]]
+        if keep == list(y.shape[2:]):
+            return y
+        return y[..., :keep[0], :keep[1], :keep[2]].contiguous(memory_format=torch.channels_last_3d)
 
 
 class _ConvTransposeK3S2(torch.autograd.Function):
@@ -170,7 +229,7 @@ class _ConvK3S2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return F.conv3d(x, w, None, 2, 1)
+        return _conv3d(x, w, None, 2, 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -192,22 +251,26 @@ def _is_k3s2(module: nn.Module) -> bool:
 
 
 def conv(module: nn.Conv2d | nn.Conv3d, x: torch.Tensor, sweep=None) -> torch.Tensor:
-    """Apply ``module`` in the dtype of ``x``; with ``sweep``, ``module`` a
-    3x3x3 conv with padding 1, to this rank's slice of D. The stride-1 conv
-    y[d] reads x[d-1..d+1], so the slice takes one plane from each
-    neighbour; the stride-2 conv y[d] reads x[2d-1..2d+1], so it takes one
-    lower plane only (the slice starts on an even plane). D then takes no
-    padding, and the stride-2 conv keeps autograd's backward. Unsplit, a
-    Conv3d(k3, s2, p1) takes its input's gradient by output parity
-    (``_ConvK3S2``)."""
-    fn = F.conv2d if isinstance(module, nn.Conv2d) else F.conv3d
+    """Apply ``module`` in the dtype of ``x``; a 3D conv takes and returns
+    NDHWC (an input in another layout goes through ``to_ndhwc``). With
+    ``sweep``, ``module`` a 3x3x3 conv with padding 1, to this rank's slice
+    of D. The stride-1 conv y[d] reads x[d-1..d+1], so the slice takes one
+    plane from each neighbour; the stride-2 conv y[d] reads x[2d-1..2d+1], so
+    it takes one lower plane only (the slice starts on an even plane). D
+    then takes no padding, and the stride-2 conv keeps autograd's backward.
+    Unsplit, a Conv3d(k3, s2, p1) takes its input's gradient by output
+    parity (``_ConvK3S2``)."""
+    if isinstance(module, nn.Conv2d):
+        return F.conv2d(x, _cast(module.weight, x.dtype), _cast(module.bias, x.dtype), module.stride,
+                        module.padding)
+    x = to_ndhwc(x)
     padding = module.padding
     if sweep is not None:
         x = exchange_halos(x, 2, 1, 1 if module.stride[0] == 1 else 0, sweep.group)
         padding = (0, *module.padding[1:])
     elif _is_k3s2(module):
         return _ConvK3S2.apply(x, _cast(module.weight, x.dtype))
-    return fn(x, _cast(module.weight, x.dtype), _cast(module.bias, x.dtype), module.stride, padding)
+    return _conv3d(x, _cast(module.weight, x.dtype), _cast(module.bias, x.dtype), module.stride, padding)
 
 
 class ConvBnReLU(nn.Module):
@@ -254,11 +317,13 @@ class ConvTransposeBnReLU3D(nn.Sequential):
         self.relu = relu
 
     def forward(self, x: torch.Tensor, sweep=None) -> torch.Tensor:
-        """The transposed conv by output parity (``_ConvTransposeK3S2``).
-        With ``sweep``: y[2i] reads x[i] and y[2i+1] reads x[i] and x[i+1],
-        so the slice takes one upper plane, which stands in for the zero
-        plane on D: the slice's 2 D_slice planes."""
+        """The transposed conv by output parity (``_ConvTransposeK3S2``), on
+        NDHWC (another layout goes through ``to_ndhwc``). With ``sweep``:
+        y[2i] reads x[i] and y[2i+1] reads x[i] and x[i+1], so the slice takes
+        one upper plane, which stands in for the zero plane on D: the slice's
+        2 D_slice planes."""
         deconv, bn = self[0], self[1]
+        x = to_ndhwc(x)
         if sweep is not None:
             x = exchange_halos(x, 2, 0, 1, sweep.group)
         x = _ConvTransposeK3S2.apply(x, _cast(deconv.weight, x.dtype), sweep is not None)

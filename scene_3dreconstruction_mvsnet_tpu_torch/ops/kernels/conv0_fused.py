@@ -5,13 +5,15 @@ conv0_fused.py::conv0_bn_relu_fused``: CostRegNet's first 3D conv (3x3x3,
 32 -> 8 channels) with eval-mode BatchNorm and ReLU in one pass. The kernel
 (``csrc/conv0_fused.cu``) reads the channels-last bf16 cost volume
 [B, D, H, W, 32] the sweep-variance kernel writes and writes the activation
-[B, 8, D, H, W] in bf16, the layout conv1 takes, so the volume is not
-permuted first. It is an implicit GEMM on the tensor cores (mma.sync
-m16n8k16, bf16 products, f32 sums): a block owns an 8 x 32 (y, x) output
-tile and streams a chunk of depth planes through shared memory
-(``launch_geometry``); the weights go to it as mma B fragments
-(``mma_weight_fragments``). The TPU kernel's band-Toeplitz weights and
-D-streaming carries answer the MXU's tiles and are not ported.
+[B, 8, D, H, W] in bf16 laid out NDHWC (``torch.channels_last_3d``, one
+16-byte store a voxel), the layout CostRegNet's conv1 takes, so the volume
+is not permuted first and the activation needs no conversion. It is an
+implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 products, f32
+sums): a block owns an 8 x 32 (y, x) output tile and streams a chunk of
+depth planes through shared memory (``launch_geometry``); the weights go to
+it as mma B fragments (``mma_weight_fragments``). The TPU kernel's
+band-Toeplitz weights and D-streaming carries answer the MXU's tiles and are
+not ported.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises. The plain version is an f32 ``F.conv3d`` (TF32 off) of the
@@ -110,20 +112,20 @@ def conv0_bn_relu_plain(
     x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """x [B, D, H, W, 32], conv weight [8, 32, 3, 3, 3], folded BN scale and
-    bias [8] -> relu(conv3d(x) * scale + bias) [B, 8, D, H, W] bf16, the conv
-    in f32 on bf16-rounded inputs and weights."""
+    bias [8] -> relu(conv3d(x) * scale + bias) [B, 8, D, H, W] bf16 NDHWC, the
+    conv in f32 on bf16-rounded inputs and weights."""
     xf = x.to(torch.bfloat16).float().permute(0, 4, 1, 2, 3)
     with _no_tf32():
         y = F.conv3d(xf, weight.to(torch.bfloat16).float(), padding=1)
     y = y * scale.float()[:, None, None, None] + bias.float()[:, None, None, None]
-    return torch.relu(y).to(torch.bfloat16)
+    return torch.relu(y).to(torch.bfloat16, memory_format=torch.channels_last_3d)
 
 
 def conv0_bn_relu_cuda(
     x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """Launch K4: x [B, D, H, W, 32] bf16 (contiguous) -> [B, 8, D, H, W]
-    bf16."""
+    bf16 NDHWC."""
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"conv0_bn_relu_cuda takes CUDA tensors, got {device}")
@@ -140,7 +142,7 @@ def conv0_bn_relu_cuda(
         if tuple(t.shape) != (CO,):
             raise ValueError(f"{name} must be [{CO}], got {tuple(t.shape)}")
     geom = launch_geometry(B, D, H, W, torch.cuda.get_device_properties(device).multi_processor_count)
-    out = torch.empty((B, CO, D, H, W), dtype=torch.bfloat16, device=device)
+    out = torch.empty((B, CO, D, H, W), dtype=torch.bfloat16, device=device, memory_format=torch.channels_last_3d)
     launch(
         _library().conv0_fused_launch, x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
         B, D, H, W, geom["tiles_x"], geom["tiles_y"], geom["d_chunk"], device=device, name="conv0_fused",
@@ -152,7 +154,7 @@ def conv0_bn_relu(
     x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """Fused eval-mode conv0 + BatchNorm + ReLU: the channels-last volume
-    x [B, D, H, W, 32] -> [B, 8, D, H, W] bf16. CPU tensors take the plain
+    x [B, D, H, W, 32] -> [B, 8, D, H, W] bf16 NDHWC. CPU tensors take the plain
     version; CUDA tensors launch K4 (x is cast to a contiguous bf16 tensor)."""
     if x.device.type == "cpu":
         return conv0_bn_relu_plain(x, weight, scale, bias)

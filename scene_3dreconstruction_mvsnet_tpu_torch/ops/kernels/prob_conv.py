@@ -11,11 +11,14 @@ its launches (``launch_counts``):
   bias gradient (two: each block's sums, then their sum in a fixed order), as
   many as autograd asks for.
 
-The kernels take x [B, 8, D_in, H, W] (bf16 or f32, contiguous) with D
-padded by one zero plane at each end (``pad_d`` 1) or, on the sweep split,
-carrying the neighbours' planes (``pad_d`` 0: D_in = D + 2), sum in f32 and
-round each output once. A CPU tensor takes the plain version, ``F.conv3d``
-with the same padding; a CUDA tensor launches the kernels or raises.
+The kernels take x [B, 8, D_in, H, W] (bf16 or f32) laid out NDHWC
+(``torch.channels_last_3d``, CostRegNet's layout: a voxel's 8 channels are
+16 bytes in bf16) with D padded by one zero plane at each end (``pad_d`` 1)
+or, on the sweep split, carrying the neighbours' planes (``pad_d`` 0: D_in =
+D + 2), sum in f32 and round each output once; the input gradient comes back
+NDHWC. The output [B, 1, D, H, W] is the same tensor in either layout. A CPU
+tensor takes the plain version, ``F.conv3d`` with the same padding, in
+whatever layout it comes; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ from ...parallel.halo import exchange_halos
 from . import check_cuda_tensor, launch, load_cuda_library
 
 TILE_COLS = 32  # output columns of every kernel's tile
-TILE_ROWS = {"forward": 16, "dgrad": 32, "wgrad": 8}  # output rows of each kernel's tile
-WARPS = {"forward": 1, "dgrad": 4, "wgrad": 4}  # warps of each kernel's block
+TILE_ROWS = {"forward": 16, "dgrad": 4, "wgrad": 8}  # output rows of each kernel's tile
+WARPS = {"forward": 8, "dgrad": 4, "wgrad": 4}  # warps of each kernel's block
 MIN_CHUNK = 4  # planes of D a block walks at least (each chunk reads two planes more)
 TARGET_WARPS = 4096  # warps a launch aims at: two waves of 16 on each of the card's 132 SMs
 SUMS = 8 * 27 + 1  # the weight gradient's sums and the bias gradient's
@@ -69,10 +72,12 @@ def prob_conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | 
     return F.conv3d(x, weight, bias, 1, (pad_d, 1, 1))
 
 
-def _aligned(W: int, *volumes: torch.Tensor) -> int:
-    """1 where the kernels may copy and store 16 bytes at a time: W a multiple
-    of 16 bytes' values and every volume 16-byte aligned."""
-    return int(W * volumes[0].element_size() % 16 == 0 and all(v.data_ptr() % 16 == 0 for v in volumes))
+def _aligned(W: int | None, *volumes: torch.Tensor) -> int:
+    """1 where the kernels may copy and store 16 bytes at a time: every
+    volume 16-byte aligned and, where a single-channel plane is copied (``W``
+    given), W a multiple of 16 bytes' values."""
+    rows = W is None or W * volumes[0].element_size() % 16 == 0
+    return int(rows and all(v.data_ptr() % 16 == 0 for v in volumes))
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -84,19 +89,20 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, p
     D_out = D_in + 2 * pad_d - 2
     y = torch.empty((B, 1, D_out, H, W), dtype=x.dtype, device=x.device)
     launch(_library().prob_conv_forward_launch, x.data_ptr(), weight.data_ptr(), _ptr(bias), y.data_ptr(),
-           int(x.dtype == torch.bfloat16), _aligned(W, x, y), B, D_in, D_out, H, W, pad_d,
+           int(x.dtype == torch.bfloat16), _aligned(None, x), B, D_in, D_out, H, W, pad_d,
            *launch_plan("forward", B, D_out, H, W), device=x.device, name="prob_conv")
     return y
 
 
 def _backward(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, pad_d: int, need_x: bool, need_w: bool,
               has_bias: bool) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
-    """(dx, dweight, dbias) from the saved x and weight and the contiguous
-    cotangent g [B, 1, D_out, H, W]; dx only with ``need_x``, dweight (and
-    dbias, where the conv has a bias) only with ``need_w``."""
+    """(dx, dweight, dbias) from the saved NDHWC x and weight and the
+    contiguous cotangent g [B, 1, D_out, H, W]; dx (NDHWC) only with
+    ``need_x``, dweight (and dbias, where the conv has a bias) only with
+    ``need_w``."""
     B, _, D_in, H, W = x.shape
     D_out = g.shape[2]
-    gx = torch.empty_like(x) if need_x else None
+    gx = torch.empty_like(x, memory_format=torch.channels_last_3d) if need_x else None
     dweight = torch.empty_like(weight) if need_w else None
     dbias = torch.empty(1, dtype=x.dtype, device=x.device) if need_w and has_bias else None
     wplan = launch_plan("wgrad", B, D_out, H, W)
@@ -132,8 +138,9 @@ class _ProbConv(torch.autograd.Function):
 
 
 def prob_conv_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, pad_d: int) -> torch.Tensor:
-    """Launch the kernels: x [B, 8, D_in, H, W] bf16 or f32 on the card, the
-    weight [1, 8, 3, 3, 3] and the bias [1] (or None) in x's dtype there;
+    """Launch the kernels: x [B, 8, D_in, H, W] NDHWC, bf16 or f32, on the
+    card, the weight [1, 8, 3, 3, 3] and the bias [1] (or None) in x's dtype
+    there;
     ``pad_d`` 1 (zero padding on D) or 0 (D_in = D + 2). Differentiable in
     all three."""
     device = x.device
@@ -141,8 +148,9 @@ def prob_conv_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | N
         raise ValueError(f"prob_conv_cuda takes CUDA tensors, got {device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x has dtype {x.dtype}, expected one of {_DTYPES}")
-    if x.dim() != 5 or x.shape[1] != 8:
-        raise ValueError(f"x has shape {tuple(x.shape)}, expected [B, 8, D, H, W]")
+    if x.dim() != 5 or x.shape[1] != 8 or not x.is_contiguous(memory_format=torch.channels_last_3d):
+        raise ValueError(f"x must be an NDHWC (channels_last_3d) [B, 8, D, H, W] tensor, got {tuple(x.shape)} "
+                         f"with strides {x.stride()}")
     if pad_d not in (0, 1) or x.shape[2] + 2 * pad_d - 2 < 1:
         raise ValueError(f"pad_d {pad_d} on {x.shape[2]} planes gives no output plane")
     check_cuda_tensor(weight, "weight", (x.dtype,), 5, device, align=1)
@@ -152,15 +160,14 @@ def prob_conv_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | N
         check_cuda_tensor(bias, "bias", (x.dtype,), 1, device, align=1)
         if bias.shape[0] != 1:
             raise ValueError(f"bias has shape {tuple(bias.shape)}, expected [1]")
-    x = x.contiguous()
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias)):
         return _ProbConv.apply(x, weight, bias, pad_d)
     return _forward(x, weight, bias, pad_d)
 
 
 def prob_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, sweep=None) -> torch.Tensor:
-    """CostRegNet's ``prob`` on x [B, 8, D, H, W] in the compute dtype, its
-    parameters cast to it -> [B, 1, D, H, W]; with ``sweep``
+    """CostRegNet's ``prob`` on x [B, 8, D, H, W] (NDHWC on the card) in the
+    compute dtype, its parameters cast to it -> [B, 1, D, H, W]; with ``sweep``
     (``parallel.VolumeSharding``), D is this rank's slice and is padded with
     the neighbours' planes (``parallel/halo.py``). The plain version for CPU
     tensors, the kernels for CUDA tensors."""

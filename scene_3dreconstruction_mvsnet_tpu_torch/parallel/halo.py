@@ -13,7 +13,9 @@ the model calls these two differentiable collectives itself:
     holds the whole axis and computes the same function of it.
 
 Both move their planes with one all-gather over the group (gloo reduces and
-gathers CUDA tensors, but its point-to-point calls are not relied on). With
+gathers CUDA tensors, but its point-to-point calls are not relied on), and
+both keep a tensor's memory layout: CostRegNet's NDHWC activations
+(``torch.channels_last_3d``) stay NDHWC through a halo exchange. With
 a group of None or of one rank nothing is exchanged: ``exchange_halos``
 attaches zero planes (the unsplit conv's padding) and ``gather_depth`` is
 the identity.
@@ -32,7 +34,10 @@ def _rank(group) -> int:
 
 
 def _all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
-    x = x.contiguous()
+    """Every rank's ``x``, each part in the layout of ``x`` where that is
+    dense (contiguous or NDHWC), else contiguous."""
+    if not (x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last_3d)):
+        x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(world_size(group))]
     dist.all_gather(parts, x, group=group)
     return parts
@@ -49,8 +54,8 @@ class _ExchangeHalos(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, dim: int, lower: int, upper: int, group) -> torch.Tensor:
         ctx.dim, ctx.lower, ctx.upper, ctx.group = dim, lower, upper, group
         S, s, L = world_size(group), _rank(group), x.shape[dim]
-        lo = x.new_zeros(x.shape[:dim] + (lower,) + x.shape[dim + 1 :])
-        up = x.new_zeros(x.shape[:dim] + (upper,) + x.shape[dim + 1 :])
+        lo = torch.zeros_like(x.narrow(dim, 0, lower))  # in the layout of x
+        up = torch.zeros_like(x.narrow(dim, 0, upper))
         if S > 1:
             parts = _all_gather(torch.cat([x.narrow(dim, 0, upper), x.narrow(dim, L - lower, lower)], dim), group)
             if s > 0:

@@ -41,6 +41,10 @@ The spans, each opened where its work is done:
                      transposed conv by output parity: the decoder's three in
                      CostRegNet's forward, and the stride-2 convs' three input
                      gradients in the backward (on the autograd thread)
+  costreg.to_ndhwc   ``models/blocks.py::to_ndhwc``: a 3D block's input copied
+                     to NDHWC because it came in another layout (the fallback;
+                     none on the cells' paths, whose activations are NDHWC
+                     from the sweep's volume to ``prob``)
   feed.wait          ``data/pipeline.py::prefetch_to_device``: the consumer
                      waiting for and handed the next batch
   casmvsnet.fpn      ``models/cas_mvsnet.py::CasMVSNet``'s feature pyramid

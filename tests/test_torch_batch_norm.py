@@ -1,12 +1,13 @@
-"""The BatchNorm3d + ReLU kernels (``ops/kernels/batch_norm.py``).
+"""The BatchNorm3d + ReLU kernels (``ops/kernels/batch_norm.py``), on NDHWC
+volumes.
 
 On the CPU: the wrapper's plain version is ``F.batch_norm`` with flax's
 running-variance rule and ``F.relu``; a mirror of the kernels' tile
-statistics (each tile's mean and M2, then Chan's combine in the kernel's
-order) holds to f64 on ragged rows and large means; the tile planner covers
-every value once. Marked ``cuda``: the kernels against the plain version and
-f64 at the cells' full-resolution shapes. The file imports nothing of JAX,
-so the card's machine runs it with
+statistics (each tile's per-channel mean and M2, then Chan's combine in the
+kernel's order) holds to f64 on ragged tiles and large means; the tile
+planner covers every value of an NDHWC volume once. Marked ``cuda``: the
+kernels against the plain version and f64 at the cells' full-resolution
+shapes. The file imports nothing of JAX, so the card's machine runs it with
 ``python -m pytest tests/test_torch_batch_norm.py -m cuda --noconftest``."""
 
 import numpy as np
@@ -20,6 +21,7 @@ from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import batch_norm as kb
 from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import bf16_ulps
 
 torch.set_num_threads(1)
+NDHWC = torch.channels_last_3d
 
 
 def _bn(C: int, seed: int, device="cpu") -> BatchNorm3d:
@@ -43,8 +45,9 @@ def _buffers(bn) -> dict:
 @pytest.mark.parametrize("relu", [False, True])
 def test_wrapper_on_cpu_is_batch_norm_then_relu(training, relu):
     """On a CPU tensor the wrapper, and the module called with ``relu``, give
-    ``F.batch_norm`` then ``F.relu`` bit for bit."""
-    x = torch.randn((2, 4, 3, 5, 6), generator=torch.Generator().manual_seed(1)) * 2.0 + 0.5
+    ``F.batch_norm`` then ``F.relu`` bit for bit, on the NDHWC layout the
+    module takes."""
+    x = (torch.randn((2, 4, 3, 5, 6), generator=torch.Generator().manual_seed(1)) * 2.0 + 0.5).to(memory_format=NDHWC)
     bn = _bn(4, 2).train(training)
     rm, rv = bn.running_mean.clone(), bn.running_var.clone()
     want = F.batch_norm(x, rm, rv, bn.weight, bn.bias, training, 0.1, 1e-5)
@@ -79,56 +82,91 @@ def test_training_updates_the_buffers_by_flax_rule(recomputing):
         assert int(bn.num_batches_tracked) == int(before["num_batches_tracked"]) + 1
 
 
-def _tile_map(S: int, vec: int) -> list[np.ndarray]:
-    """The kernels' map of a row of S values (``csrc/batch_norm.cu``): tile t
-    holds n = min(TILE, S - t TILE) values; thread i's pack j starts at
-    (j THREADS + i) vec within the tile and is loaded where that is below n.
-    Returns each tile's value indices within the row, in (pack, thread,
-    lane) order."""
-    tiles, per_thread = -(-S // kbn.TILE), kbn.TILE // kbn.THREADS
-    j, i, k = np.meshgrid(np.arange(per_thread // vec), np.arange(kbn.THREADS), np.arange(vec), indexing="ij")
-    start = (j * kbn.THREADS + i) * vec
+def _tile_map(C: int, V: int, itemsize: int, aligned: bool) -> list[np.ndarray]:
+    """The kernels' map of an NDHWC volume of V voxels of C channels
+    (``csrc/batch_norm.cu``): chunk t holds voxels t * cv .. (t + 1) * cv - 1
+    (the last ragged); thread i is lane g = i % lanes of row r = i // lanes,
+    and its pack j holds channels g * vec .. g * vec + vec - 1 of the chunk's
+    voxel r + j * rows, loaded where g * vec < C and the voxel is in the
+    chunk. Returns each chunk's value indices (voxel * C + channel), in
+    (pack, thread, channel) order."""
+    vec, lanes, cv = kbn.tile_plan(C, itemsize, aligned)
+    rows = kbn.THREADS // lanes
+    assert cv == kbn.TILE // kbn.THREADS // vec * rows
+    j, i, k = np.meshgrid(np.arange(kbn.TILE // kbn.THREADS // vec), np.arange(kbn.THREADS), np.arange(vec),
+                          indexing="ij")
+    g, r = i % lanes, i // lanes
+    voxel, channel = r + j * rows, g * vec + k
     out = []
-    for t in range(tiles):
-        n = min(kbn.TILE, S - t * kbn.TILE)
-        loaded = start < n
-        assert (start + k)[loaded].max() < n  # no pack straddles the tile's end
-        out.append(t * kbn.TILE + (start + k)[loaded])
+    for t in range(-(-V // cv)):
+        n = min(cv, V - t * cv)
+        loaded = (g * vec < C) & (voxel < n)
+        assert (channel[loaded] < C).all()  # a pack lies wholly inside its voxel
+        out.append((t * cv + voxel[loaded]) * C + channel[loaded])
     return out
 
 
-@pytest.mark.parametrize("S", [1, 7, 8, 100, 4095, 4096, 4097, 10800, 3 * 4096 + 5])
+def _block_voxels(b: int, blocks: int, cv: int, V: int) -> int:
+    """``block_voxels`` of ``csrc/batch_norm.cu``: block b's chunks b, b +
+    blocks, ... are full but the volume's last."""
+    chunks = -(-V // cv)
+    mine = (chunks - b + blocks - 1) // blocks
+    return mine * cv - (chunks * cv - V if (chunks - 1) % blocks == b else 0)
+
+
+@pytest.mark.parametrize("C,V", [(8, 1), (8, 511), (8, 4097), (16, 10800), (64, 10800), (32, 1000), (48, 777),
+                                 (5, 333), (1, 4097)])
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("aligned", [True, False])
-def test_tile_plan_covers_every_value_once(S, itemsize, aligned):
-    """Every value of a row lies in exactly one tile's loads, with 16-byte
-    loads only where S * itemsize is a multiple of 16 and the volumes are
-    aligned."""
-    tiles, vec = kbn.tile_plan(S, itemsize, aligned)
-    assert tiles == -(-S // kbn.TILE)
-    assert vec == (16 // itemsize if aligned and S * itemsize % 16 == 0 else 1)
-    covered = np.sort(np.concatenate(_tile_map(S, vec)))
-    np.testing.assert_array_equal(covered, np.arange(S))
+def test_tile_plan_covers_every_value_once(C, V, itemsize, aligned):
+    """Every value of an NDHWC volume lies in exactly one chunk's loads, with
+    16-byte loads only where a voxel's C values are a multiple of 16 bytes
+    and the volumes are aligned, and a voxel's packs on a power of two of
+    lanes, the fewest that hold them; the reductions' blocks split the
+    voxels as ``block_voxels`` counts them."""
+    vec, lanes, cv = kbn.tile_plan(C, itemsize, aligned)
+    assert vec == (16 // itemsize if aligned and C * itemsize % 16 == 0 else 1)
+    assert lanes & (lanes - 1) == 0 and lanes // 2 < C // vec <= lanes
+    chunks = _tile_map(C, V, itemsize, aligned)
+    covered = np.sort(np.concatenate(chunks))
+    np.testing.assert_array_equal(covered, np.arange(V * C))
+    blocks = kbn.reduce_blocks(len(chunks), 1)
+    assert blocks == min(len(chunks), kbn.BLOCKS_PER_SM)
+    counts = [sum(chunks[t].size for t in range(b, len(chunks), blocks)) // C for b in range(blocks)]
+    assert counts == [_block_voxels(b, blocks, cv, V) for b in range(blocks)]
 
 
-def _tile_statistics(row: np.ndarray, vec: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The partial kernel's arithmetic on one (sample, channel) row in f32:
-    per tile, the sum of its values over their count, then the sum of the
-    squared deviations from that mean. Returns (counts, means, M2s)."""
+def _tile_statistics(x: np.ndarray, itemsize: int, blocks: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The partial kernel's arithmetic on a [V, C] volume over ``blocks``
+    reduction blocks: per block and channel, K the first voxel of its first
+    chunk, the f32 sums S1 of d = x - K and S2 of d * d over its chunks b, b
+    + blocks, ...; in f64 the mean K + S1 / n and M2 = S2 - S1^2 / n. Returns
+    (counts [blocks], means and M2s [C, blocks])."""
+    V, C = x.shape
+    chunks = _tile_map(C, V, itemsize, True)
+    flat = x.reshape(-1)
     counts, means, m2s = [], [], []
-    for idx in _tile_map(row.size, vec):
-        v = row[idx].astype(np.float32)
-        mean = np.float32(v.sum(dtype=np.float32) / np.float32(v.size))
-        counts.append(v.size)
-        means.append(mean)
-        m2s.append(np.square(v - mean, dtype=np.float32).sum(dtype=np.float32))
-    return np.array(counts, np.float64), np.array(means, np.float32), np.array(m2s, np.float32)
+    for b in range(blocks):
+        idx = np.concatenate(chunks[b::blocks])
+        v = flat[idx].astype(np.float32)
+        ch, n = idx % C, idx.size // C
+        first = flat[chunks[b].min():chunks[b].min() + C].astype(np.float32)
+        counts.append(n)
+        block_means, block_m2s = [], []
+        for c in range(C):
+            d = v[ch == c] - first[c]
+            s1, s2 = float(d.sum(dtype=np.float32)), float(np.square(d, dtype=np.float32).sum(dtype=np.float32))
+            block_means.append(float(first[c]) + s1 / n)
+            block_m2s.append(s2 - s1 * (s1 / n))
+        means.append(block_means)
+        m2s.append(block_m2s)
+    return np.array(counts, np.float64), np.array(means).T, np.array(m2s).T
 
 
 def _chan_combine(counts, means, m2s) -> tuple[float, float]:
     """The finalize kernel's combine in f64: thread i folds entries i,
-    i + THREADS, ... in turn, then a tree halves the threads. Returns (mean,
-    biased variance)."""
+    i + FINAL_THREADS, ... in turn, then a tree halves the threads. Returns
+    (mean, biased variance)."""
     def combine(a, b):
         (na, ma, qa), (nb, mb, qb) = a, b
         if nb == 0:
@@ -137,10 +175,11 @@ def _chan_combine(counts, means, m2s) -> tuple[float, float]:
         d = mb - ma
         return n, ma + d * (nb / n), qa + qb + d * d * (na * nb / n)
 
-    acc = [(0.0, 0.0, 0.0)] * kbn.THREADS
+    threads = kbn.FINAL_THREADS
+    acc = [(0.0, 0.0, 0.0)] * threads
     for e in range(len(counts)):
-        acc[e % kbn.THREADS] = combine(acc[e % kbn.THREADS], (counts[e], float(means[e]), float(m2s[e])))
-    s = kbn.THREADS // 2
+        acc[e % threads] = combine(acc[e % threads], (counts[e], float(means[e]), float(m2s[e])))
+    s = threads // 2
     while s:
         acc = [combine(acc[i], acc[i + s]) for i in range(s)]
         s //= 2
@@ -148,26 +187,28 @@ def _chan_combine(counts, means, m2s) -> tuple[float, float]:
     return mean, m2 / n
 
 
-@pytest.mark.parametrize("N,S", [(1, 4097), (2, 10803), (3, 5 * 4096 + 1)])
+@pytest.mark.parametrize("C,V,blocks", [(8, 4097, 3), (16, 10803, 4), (64, 5 * 64 + 1, 2)])
 @pytest.mark.parametrize("offset", [0.0, 1e3])
-def test_tile_statistics_hold_to_f64(N, S, offset):
-    """The mirror of the kernels' statistics (per tile in f32, combined in
-    f64) is within 1e-5 of the f64 mean and biased variance over N samples'
-    rows of S values, with a mean 1000 standard deviations from 0 too,
-    where E[x^2] - E[x]^2 in f32 loses every digit."""
-    rng = np.random.default_rng(N * S)
-    x = (rng.standard_normal((N, S)) * 0.8 + offset).astype(np.float32)
-    vec = kbn.tile_plan(S, 4, True)[1]
-    parts = [_tile_statistics(x[b], vec) for b in range(N)]
-    mean, var = _chan_combine(*(np.concatenate([p[i] for p in parts]) for i in range(3)))
+def test_tile_statistics_hold_to_f64(C, V, blocks, offset):
+    """The mirror of the kernels' statistics (per reduction block and channel
+    f32 sums of the values shifted by the block's first voxel, over chunks
+    strided by the blocks, combined in f64) is within 1e-5 of each channel's
+    f64 mean and biased variance over V voxels, with a mean 1000 standard
+    deviations from 0 too, where E[x^2] - E[x]^2 in f32 loses every digit."""
+    rng = np.random.default_rng(C * V)
+    x = (rng.standard_normal((V, C)) * 0.8 + offset).astype(np.float32)
+    counts, means, m2s = _tile_statistics(x, 4, blocks)
+    assert list(counts) == [_block_voxels(b, blocks, kbn.tile_plan(C, 4, True)[2], V) for b in range(blocks)]
     x64 = x.astype(np.float64)
-    want_mean, want_var = x64.mean(), x64.var()
-    assert abs(mean - want_mean) <= 1e-5 * (abs(want_mean) + np.sqrt(want_var))
-    assert abs(var - want_var) <= 1e-5 * want_var
+    for c in range(C):
+        mean, var = _chan_combine(counts, means[c], m2s[c])
+        want_mean, want_var = x64[:, c].mean(), x64[:, c].var()
+        assert abs(mean - want_mean) <= 1e-5 * (abs(want_mean) + np.sqrt(want_var))
+        assert abs(var - want_var) <= 1e-5 * want_var
     if offset:
-        x32 = x.astype(np.float32)
+        x32 = x[:, 0]
         naive = np.float32(np.square(x32).mean(dtype=np.float32)) - np.float32(x32.mean(dtype=np.float32)) ** 2
-        assert abs(naive - want_var) > 1e-3 * want_var  # what the two-pass tiles avoid
+        assert abs(naive - x64[:, 0].var()) > 1e-3 * x64[:, 0].var()  # what the shift avoids
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -175,13 +216,19 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         kbn.batch_norm_relu_cuda(_bn(2, 0), torch.zeros((1, 2, 1, 1, 8)), True)
 
 
+def test_tile_plan_refuses_more_packs_than_a_block_has_lanes():
+    with pytest.raises(ValueError, match="packs a voxel"):
+        kbn.tile_plan(257, 2, True)
+
+
 # ---- on the card ----------------------------------------------------------
 
 # the cells' full-resolution 8-channel volumes (dtu_request's conv0 / conv11,
 # casmvs_dtu_request's stage 3, dtu_train's at B = 4), dtu_request's deepest
-# 64-channel level, and a ragged one that takes the one-value loads
+# 64-channel level, a small ragged one, one whose 6 packs a voxel leave idle
+# lanes, and one of 5 channels that takes the one-value loads
 CARD_SHAPES = [(1, 8, 192, 144, 200), (1, 8, 8, 864, 1152), (4, 8, 192, 128, 160), (1, 64, 24, 18, 25),
-               (2, 16, 5, 7, 9)]
+               (2, 16, 5, 7, 9), (1, 48, 6, 10, 12), (2, 5, 4, 6, 7)]
 ZERO_BAND = 1e-6  # a ReLU zero may differ where |pre-activation| < this x the largest (f32 rounding)
 FLOOR = 1e-4  # bf16_ulps' floor, x the largest |value|: below it a value is f32 cancellation, not the kernel
 
@@ -196,9 +243,10 @@ def cuda():
 
 
 def _volume(shape, dtype, device, seed=0):
+    """A random [N, C, D, H, W] volume laid out NDHWC."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(shape, generator=g, device=device) * 1.7 + 0.4
-    return x.to(dtype)
+    return x.to(dtype, memory_format=NDHWC)
 
 
 def _plain(bn, x, relu):
@@ -224,21 +272,36 @@ def _check_forward(y, want, pre64, relu):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 @pytest.mark.parametrize("relu", [True, False])
-def test_eval_forward_matches_the_plain_version(cuda, shape, relu):
-    """Eval, bf16: one launch, within 1 bf16 ulp of ``F.batch_norm`` +
-    ``F.relu`` on the card, the ReLU's zeros the same but within f32
-    rounding of 0; two launches give equal bits."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eval_forward_matches_the_plain_version(cuda, shape, relu, dtype):
+    """Eval: one launch, NDHWC out; bf16 within 1 bf16 ulp of
+    ``F.batch_norm`` + ``F.relu`` on the card, the ReLU's zeros the same but
+    within f32 rounding of 0; f32 within 1e-6 x the largest; two launches
+    give equal bits."""
     bn = _bn(shape[1], 5, cuda).eval()
-    x = _volume(shape, torch.bfloat16, cuda)
+    x = _volume(shape, dtype, cuda)
     kernels.reset_launch_counts()
     with torch.no_grad():
         y = kbn.batch_norm_relu(bn, x, relu)
         again = kbn.batch_norm_relu(bn, x, relu)
         want = _plain(bn, x, relu)
     assert kernels.launch_counts()["batch_norm_eval"] == 2
+    assert y.is_contiguous(memory_format=NDHWC)
     invstd = torch.rsqrt(bn.running_var + bn.eps)
-    _check_forward(y, want, _pre64(x, bn.running_mean, invstd, bn), relu)
+    if dtype == torch.bfloat16:
+        _check_forward(y, want, _pre64(x, bn.running_mean, invstd, bn), relu)
+    else:
+        torch.testing.assert_close(y, want, rtol=0, atol=1e-6 * want.abs().max().item())
     assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_an_ncdhw_volume(cuda):
+    """The kernels take NDHWC only: an NCDHW-contiguous volume is refused
+    (``models/blocks.py::to_ndhwc`` converts what a block is handed)."""
+    x = _volume((1, 8, 4, 6, 8), torch.bfloat16, cuda).contiguous()
+    with pytest.raises(ValueError, match="NDHWC"):
+        kbn.batch_norm_relu(_bn(8, 0, cuda).eval(), x, True)
 
 
 def _f64_reference(bn, x, dy, mask, training):
@@ -273,6 +336,7 @@ def test_training_forward_and_backward(cuda, shape, dtype):
     y.backward(dy)
     assert {k: n for k, n in kernels.launch_counts().items() if n} == {"batch_norm_train": 3,
                                                                       "batch_norm_backward": 3}
+    assert y.is_contiguous(memory_format=NDHWC) and x.grad.is_contiguous(memory_format=NDHWC)
     dims = (0, 2, 3, 4)
     x64 = x.detach().double()
     mean64, var64 = x64.mean(dims), x64.var(dims, unbiased=False)
@@ -317,7 +381,7 @@ def test_training_forward_and_backward(cuda, shape, dtype):
 def test_eval_backward_and_recompute(cuda, relu):
     """Eval with gradients: dx = scale * g; dgamma and dbeta as the f64
     gradient. A training forward while recomputing leaves every buffer's
-    bits. A non-contiguous cotangent (a strided view) gives the contiguous
+    bits. A cotangent in another layout (a strided view) gives the NDHWC
     one's bits."""
     shape = (2, 16, 12, 18, 20)
     bn = _bn(16, 7, cuda).eval()
@@ -333,7 +397,7 @@ def test_eval_backward_and_recompute(cuda, relu):
     torch.testing.assert_close(bn.bias.grad.double(), db64, rtol=1e-5, atol=1e-5 * db64.abs().max().item())
     first = x.grad.clone()
     x.grad = None
-    kbn.batch_norm_relu(bn, x, relu).backward(dy.contiguous())
+    kbn.batch_norm_relu(bn, x, relu).backward(dy.contiguous(memory_format=NDHWC))
     assert torch.equal(first, x.grad)
 
     bn.train()
@@ -352,9 +416,9 @@ def test_misaligned_volume_takes_the_one_value_loads(cuda):
     bn = _bn(8, 8, cuda).eval()
     x = _volume(shape, torch.bfloat16, cuda, seed=5)
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
-    flat[1:].copy_(x.flatten())
-    shifted = flat[1:].view(shape)
-    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    flat[1:].copy_(x.permute(0, 2, 3, 4, 1).flatten())
+    shifted = flat[1:].view(1, 16, 24, 32, 8).permute(0, 4, 1, 2, 3)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous(memory_format=NDHWC)
     with torch.no_grad():
         assert torch.equal(kbn.batch_norm_relu(bn, shifted, True), kbn.batch_norm_relu(bn, x, True))
 

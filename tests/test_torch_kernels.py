@@ -353,6 +353,7 @@ def test_conv0_fused_kernel_matches_plain(cuda, shape):
     out = k4.conv0_bn_relu(x, w, scale, bias)
     torch.cuda.synchronize()
     assert _launched(before) == {"conv0_fused": 1} and out.dtype == torch.bfloat16 and out.shape == (B, 8, D, H, W)
+    assert out.is_contiguous(memory_format=torch.channels_last_3d)  # NDHWC, CostRegNet's layout
     ref = k4.conv0_bn_relu_plain(x, w, scale, bias)
     assert bool((ref == 0).any()) and bool((ref > 0).any())  # both sides of the ReLU are seen
     assert bf16_ulps(out, ref, floor=1e-3 * ref.float().abs().max().item()) <= 1.0

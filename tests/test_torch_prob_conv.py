@@ -1,4 +1,5 @@
-"""CostRegNet's ``prob`` conv kernels (``ops/kernels/prob_conv.py``).
+"""CostRegNet's ``prob`` conv kernels (``ops/kernels/prob_conv.py``), on
+NDHWC volumes.
 
 On the CPU: the wrapper's plain version is today's ``conv(self.prob, x,
 sweep)`` bit for bit; mirrors of the three kernels' loops over D (chunks,
@@ -25,11 +26,13 @@ from scene_3dreconstruction_mvsnet_tpu_torch.ops.kernels import prob_conv as kp
 
 torch.set_num_threads(1)
 U32 = 2.0 ** -24  # f32's unit roundoff
+NDHWC = torch.channels_last_3d
 
 
 def _inputs(shape, dtype, bias: bool, seed: int, device="cpu"):
+    """x [B, 8, D, H, W] laid out NDHWC, the weight and the bias (or None)."""
     g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(shape, generator=g, device=device).to(dtype)
+    x = torch.randn(shape, generator=g, device=device).to(dtype, memory_format=NDHWC)
     w = (torch.randn((1, 8, 3, 3, 3), generator=g, device=device) * 0.2).to(dtype)
     b = (torch.randn((1,), generator=g, device=device) * 0.1).to(dtype) if bias else None
     return x, w, b
@@ -43,7 +46,7 @@ def test_wrapper_on_cpu_is_the_module_conv(dtype, bias, split):
     bits, unsplit and with a sweep descriptor (a group of one rank: the halo
     planes are zeros), and launches nothing."""
     net = CostRegNet(prob_bias=bias)
-    x = torch.randn((2, 8, 5, 7, 9), generator=torch.Generator().manual_seed(1)).to(dtype)
+    x = torch.randn((2, 8, 5, 7, 9), generator=torch.Generator().manual_seed(1)).to(dtype, memory_format=NDHWC)
     sweep = SimpleNamespace(group=None) if split else None
     kernels.reset_launch_counts()
     got = kp.prob_conv(x, net.prob.weight, net.prob.bias, sweep)
@@ -265,6 +268,7 @@ def test_kernels_match_the_plain_version(cuda, shape, dtype, bias, pad_d):
     torch.cuda.synchronize()
     assert {k: n for k, n in kernels.launch_counts().items() if n} == {"prob_conv": 1, "prob_conv_backward": 3}
     assert all(gr.dtype == dtype for gr in grads)
+    assert grads[0].is_contiguous(memory_format=NDHWC)
 
     want_y, want_gx, *_ = _plain_grads(x, w, b, pad_d, g)
     if dtype == torch.bfloat16:
@@ -300,13 +304,13 @@ def test_misaligned_volume_takes_the_one_value_copies(cuda, bias, pad_d):
     shape = (1, 8, 6 + 2 * (1 - pad_d), 24, 64)
     x, w, b = _inputs(shape, torch.bfloat16, bias, seed=5, device=cuda)
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
-    flat[1:].copy_(x.flatten())
-    shifted = flat[1:].view(shape)
-    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    flat[1:].copy_(x.permute(0, 2, 3, 4, 1).flatten())
+    shifted = flat[1:].view(1, shape[2], 24, 64, 8).permute(0, 4, 1, 2, 3)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous(memory_format=NDHWC)
     w.requires_grad_()
     outs = []
     for xx in (x, shifted):
-        xx = xx.detach().requires_grad_()
+        xx = xx.detach().requires_grad_()  # the one-value path's gradient is NDHWC too
         y = kp.prob_conv_cuda(xx, w, b, pad_d)
         g = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda).to(y.dtype)
         outs.append((y.detach(), *torch.autograd.grad(y, (xx, w), g)))
